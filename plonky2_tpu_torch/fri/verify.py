@@ -1,0 +1,265 @@
+"""FRI opening-proof verification, batched over (proof, query round).
+
+Counterpart of ``plonky2_tpu/fri/verify.py``.  Every check is a verdict-bit
+conjunction, so an invalid proof yields False without aborting the batch.
+Per-query quantities are shaped (B, Q).  Merkle leaves are hashed with one
+Poseidon-BN254 permutation call per absorb step over all (B, Q) lanes, and
+sibling paths with one call per tree level -- each call is one launch of the
+CUDA kernel on the GPU.  Digests are compared in the Montgomery domain.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..fields import goldilocks as gl
+from ..fields import goldilocks_ext as qe
+from ..fields import bn254
+from ..hash import poseidon_bn254 as pb
+from ..proof.serde import leaf_layout, absorb_slot_masks
+
+
+def _bits_to_index(bits):
+    idx = torch.zeros_like(bits[0])
+    for i, b in enumerate(bits):
+        idx = idx | (b << i)
+    return idx
+
+
+def _pow_ok(pr, pow_bits):
+    """The pow response must fit in 64 - pow_bits bits; pr is a GL pair."""
+    max_bits = 64 - pow_bits
+    if max_bits < 32:
+        return (pr[1] == 0) & (pr[0] < (1 << max_bits))
+    if max_bits == 32:
+        return pr[1] == 0
+    if max_bits < 64:
+        return pr[1] < (1 << (max_bits - 32))
+    return torch.ones_like(pr[0], dtype=torch.bool)
+
+
+def _merkle_chain(digest, siblings, index_bits, depth):
+    """Walk Merkle paths: digest (..., 16); siblings (..., depth, 16);
+    index_bits[i] (...,) 0/1 picks the side at level i."""
+    cur = digest
+    z = torch.zeros_like(digest)
+    for lvl in range(depth):
+        sib = siblings[..., lvl, :]
+        m = index_bits[lvl].bool()[..., None]
+        left = torch.where(m, sib, cur)
+        right = torch.where(m, cur, sib)
+        cur = pb.permute(torch.stack([z, z, left, right], dim=-2))[..., 0, :]
+    return cur
+
+
+def _cap_lookup(cap, cap_index):
+    """cap: (B, cap_size, 16); cap_index: (B, ...) -> (B, ..., 16)."""
+    B = cap.shape[0]
+    flat = cap_index.reshape(B, -1)
+    rows = torch.arange(B, device=cap.device)[:, None]
+    return cap[rows, flat].reshape(cap_index.shape + (16,))
+
+
+def _hash_leaves_scan(packed, slot_mask):
+    """Batched HashNoPad over precomputed absorb blocks.
+
+    packed: (..., T, 3, 16) Montgomery blocks; slot_mask: (T, 3) bool.
+    Slot 0 is kept and only the masked slots 1..3 are overwritten."""
+    T = packed.shape[-3]
+    state = torch.zeros(packed.shape[:-3] + (4, 16), dtype=packed.dtype,
+                        device=packed.device)
+    smask = torch.as_tensor(np.asarray(slot_mask), device=packed.device)
+    for t in range(T):
+        rest = torch.where(smask[t][:, None], packed[..., t, :, :],
+                           state[..., 1:, :])
+        state = pb.permute(torch.cat([state[..., :1, :], rest], dim=-2))
+    return state[..., 0, :]
+
+
+def _dot_base_with_alpha(evals, apows):
+    """sum_i evals_i * alpha^i: base-field evals (B, Q, L), QE powers (B, L)
+    -> QE (B, Q)."""
+    p0 = (apows[0][0][:, None, :], apows[0][1][:, None, :])
+    p1 = (apows[1][0][:, None, :], apows[1][1][:, None, :])
+    d0 = gl.sum_digits_axis(gl.mul_digits(evals, p0), -1)
+    d1 = gl.sum_digits_axis(gl.mul_digits(evals, p1), -1)
+    return (gl.reduce_digits(d0), gl.reduce_digits(d1))
+
+
+def _bcast_qe(x):
+    """QE (B,) -> QE (B, 1)."""
+    return qe.index(x, (Ellipsis, None))
+
+
+def verify_fri(spec, dev, challenges, verdict):
+    """Verify the FRI opening proof; returns the updated (B,) verdict."""
+    B = dev["pow_witness"][0].shape[0]
+    # Q from the data, as the reference does
+    Q = dev["init_siblings"].shape[1]
+    lde_bits = spec.lde_bits
+    device = dev["init_siblings"].device
+
+    verdict = verdict & _pow_ok(challenges["pow_response"], spec.pow_bits)
+
+    # --- precomputed reduced openings
+    alpha = challenges["fri_alpha"]
+    batch0 = qe.concat([dev[key] for key in
+                        ["op_constants", "op_plonk_sigmas", "op_wires",
+                         "op_plonk_zs", "op_partial_products",
+                         "op_quotient_polys"]])           # QE (B, n0)
+    batch1 = dev["op_plonk_zs_next"]                      # QE (B, nc)
+    pre0 = qe.horner(batch0, alpha)
+    pre1 = qe.horner(batch1, alpha)
+
+    # --- per-round index bits
+    x_index = challenges["query_indices"]                 # GL pair (B, Q)
+    bits = gl.to_bits(x_index, 64)[:lde_bits]
+    cap_bits = bits[lde_bits - spec.cap_height:]
+    if cap_bits:
+        cap_index = _bits_to_index(cap_bits)
+    else:
+        cap_index = torch.zeros_like(x_index[0])
+
+    # --- initial tree Merkle proofs
+    layout = leaf_layout(spec)
+    per_oracle = []
+    for o in range(4):
+        if layout.noop[o]:
+            # HashOrNoop: a <= 3-element leaf's digest is its packed value
+            per_oracle.append(dev["init_leaf_packed"][:, :, o, 0, 0, :])
+        else:
+            n = layout.n_steps[o]
+            per_oracle.append(_hash_leaves_scan(
+                dev["init_leaf_packed"][:, :, o, :n], layout.slot_mask[o, :n]))
+    leaf_digests = torch.stack(per_oracle, dim=2)         # (B, Q, 4, 16)
+    bits4 = [b[..., None].expand(b.shape + (4,)) for b in bits]
+    roots = _merkle_chain(leaf_digests, dev["init_siblings"], bits4,
+                          spec.initial_tree_depth)        # (B, Q, 4, 16)
+    caps = torch.stack([dev["const_sigmas_cap"], dev["wires_cap"],
+                        dev["zs_pp_cap"], dev["quotient_cap"]], dim=1)
+    for o in range(4):
+        expected = _cap_lookup(caps[:, o], cap_index)
+        verdict = verdict & torch.all(bn254.eq(roots[..., o, :], expected), dim=-1)
+
+    # --- subgroup_x = GENERATOR * root^bitrev(idx)
+    root = gl.primitive_root_of_unity(lde_bits)
+    prod = gl.ones((B, Q), device)
+    pw = root
+    for i in reversed(range(lde_bits)):
+        term = gl.mul_const(prod, pw)
+        prod = gl.select(bits[i].bool(), term, prod)
+        pw = (pw * pw) % gl.P
+    subgroup_x = gl.mul_const(prod, gl.MULTIPLICATIVE_GROUP_GENERATOR)
+
+    # --- combine initial
+    zeta = challenges["zeta"]
+    n0 = batch0[0][0].shape[-1]
+    apow0 = qe.powers(alpha, n0)                          # QE (B, n0)
+    evals0 = gl.concat([dev[f"init_leaves_{o}"] for o in range(4)])  # (B,Q,L)
+    re0 = _dot_base_with_alpha(evals0, apow0)
+    sx_qe = qe.from_base(subgroup_x)
+
+    num0 = qe.sub(re0, _bcast_qe(pre0))
+    den0 = qe.sub(sx_qe, _bcast_qe(zeta))
+    verdict = verdict & torch.all(~qe.is_zero(den0), dim=-1)
+    total = qe.mul(num0, qe.inv(den0))
+
+    # batch 1: Zs at g*zeta (the first num_challenges leaf-2 elements)
+    g_deg = gl.primitive_root_of_unity(spec.degree_bits)
+    zeta_next = (gl.mul_const(zeta[0], g_deg), gl.mul_const(zeta[1], g_deg))
+    nb1 = spec.num_challenges
+    evals1 = gl.index(dev["init_leaves_2"], (Ellipsis, slice(0, nb1)))
+    re1 = _dot_base_with_alpha(evals1, qe.powers(alpha, nb1))
+    num1 = qe.sub(re1, _bcast_qe(pre1))
+    den1 = qe.sub(sx_qe, _bcast_qe(zeta_next))
+    verdict = verdict & torch.all(~qe.is_zero(den1), dim=-1)
+    a_n = alpha
+    for _ in range(nb1 - 1):
+        a_n = qe.mul(a_n, alpha)
+    old_eval = qe.add(qe.mul(_bcast_qe(a_n), total), qe.mul(num1, qe.inv(den1)))
+
+    # --- reduction steps
+    for j, arity_bits in enumerate(spec.reduction_arity_bits):
+        arity = 1 << arity_bits
+        within_bits = bits[:arity_bits]
+        coset_bits = bits[arity_bits:]
+        within_idx = _bits_to_index(within_bits)          # (B, Q)
+
+        evals = dev[f"step{j}_evals"]                     # QE (B, Q, arity)
+        # the eval at within_idx must equal the previous round's eval
+        sel = tuple(tuple(torch.gather(c, -1, within_idx[..., None])[..., 0]
+                          for c in comp) for comp in evals)
+        verdict = verdict & torch.all(qe.eq(sel, old_eval), dim=-1)
+
+        old_eval = _compute_evaluation(subgroup_x, within_bits, arity_bits,
+                                       evals, challenges["fri_betas"][j])
+
+        # Merkle check of the step evals against commit cap j
+        depth = spec.step_tree_depths[j]
+        smask = absorb_slot_masks(arity * 2)
+        assert smask.shape[0] == dev[f"step{j}_leaf_packed"].shape[2]
+        leaf_digest = _hash_leaves_scan(dev[f"step{j}_leaf_packed"], smask)
+        root_j = _merkle_chain(leaf_digest, dev[f"step{j}_siblings"],
+                               coset_bits, depth)
+        expected = _cap_lookup(dev["commit_caps"][:, j], cap_index)
+        verdict = verdict & torch.all(bn254.eq(root_j, expected), dim=-1)
+
+        for _ in range(arity_bits):
+            subgroup_x = gl.mul(subgroup_x, subgroup_x)
+        bits = coset_bits
+
+    # --- final polynomial check
+    fp_b = qe.index(dev["final_poly"], (Ellipsis, None, slice(None)))  # (B,1,F)
+    acc = qe.horner(fp_b, qe.from_base(subgroup_x))       # (B, Q)
+    return verdict & torch.all(qe.eq(old_eval, acc), dim=-1)
+
+
+def _compute_evaluation(x, within_bits, arity_bits, evals, beta):
+    """Barycentric interpolation of the coset evals at beta, stacked over the
+    coset axis, with the fallback for beta on a coset point."""
+    arity = 1 << arity_bits
+    g = gl.primitive_root_of_unity(arity_bits)
+    g_inv = pow(g, arity - 1, gl.P)
+    device = x[0].device
+
+    def bitrev(i):
+        return int(f"{i:0{arity_bits}b}"[::-1], 2)
+
+    perm = np.asarray([bitrev(i) for i in range(arity)])
+    inv_perm = np.zeros(arity, dtype=np.int64)
+    inv_perm[perm] = np.arange(arity)
+    y_st = qe.index(evals, (Ellipsis, torch.as_tensor(inv_perm, device=device)))
+
+    # cosetStart = x * gInv^bitrev(within_idx)
+    start = gl.ones(within_bits[0].shape, device)
+    pw = g_inv
+    for i in reversed(range(arity_bits)):
+        term = gl.mul_const(start, pw)
+        start = gl.select(within_bits[i].bool(), term, start)
+        pw = (pw * pw) % gl.P
+    coset_start = gl.mul(start, x)
+
+    g_pows = gl.const_array([pow(g, i, gl.P) for i in range(arity)])
+    cs_b = qe.index(qe.from_base(coset_start), (Ellipsis, None))   # (B, Q, 1)
+    x_st = qe.mul_const_arr(cs_b, g_pows)                 # (B, Q, arity)
+
+    # barycentric weights w_i = 1 / prod_{j != i} (x_i - x_j)
+    xi = qe.index(x_st, (Ellipsis, slice(None), None))    # (B, Q, A, 1)
+    xj = qe.index(x_st, (Ellipsis, None, slice(None)))    # (B, Q, 1, A)
+    pd = qe.sub(xi, xj)                                   # (B, Q, A, A)
+    eye = torch.eye(arity, dtype=torch.bool, device=device)
+    pd = qe.select(eye, qe.ones_like(pd), pd)
+    w_inv = qe.inv(qe.prod_axis(pd))                      # (B, Q, A)
+
+    beta_b = qe.index(beta, (Ellipsis, None, None))       # (B, 1, 1)
+    diff = qe.sub(beta_b, x_st)                           # (B, Q, arity)
+    any_zero = qe.is_zero(diff)
+
+    l_x = qe.prod_axis(diff)
+    terms = qe.mul(y_st, qe.mul(w_inv, qe.inv(diff)))
+    interpolation = qe.mul(l_x, qe.sum_axis(terms))
+
+    hit = torch.any(any_zero, dim=-1)
+    picked = qe.select(any_zero, y_st, qe.zeros_like(y_st))
+    return qe.select(hit, qe.sum_axis(picked), interpolation)

@@ -1,0 +1,106 @@
+"""Build and load the hand-written CUDA kernels (``plonky2_tpu_torch/csrc``).
+
+The sources have a plain C interface.  At first use ``nvcc`` compiles every
+``csrc/*.cu`` for Hopper (``sm_90a``) into one shared library,
+``build/plonky2_tpu_torch/libp2t_kernels.so`` at the repository root, and
+``ctypes`` loads it.  The library is rebuilt whenever the hash of the sources
+and flags changes.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "plonky2_tpu_torch"
+LIB_NAME = "libp2t_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "p2t_poseidon_bn254_n_const": [],
+    "p2t_poseidon_bn254_permute": [_P, _P, _P, _I, _P],
+    "p2t_transcript_n_const": [],
+    "p2t_transcript": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+}
+
+
+class KernelError(RuntimeError):
+    pass
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise KernelError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(sources):
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in sources:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()
+
+
+def build(force=False):
+    """Compile the kernels if the sources changed; returns (path, seconds
+    spent compiling, 0.0 when the cached library was current)."""
+    sources = _sources()
+    digest = _digest(sources)
+    lib = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    if (not force and lib.exists() and stamp.exists()
+            and stamp.read_text().strip() == digest):
+        return lib, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise KernelError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)
+    stamp.write_text(digest)
+    return lib, seconds
+
+
+@functools.lru_cache(maxsize=1)
+def library():
+    """The loaded kernel library (built at first use)."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc, what):
+    if rc != 0:
+        raise KernelError(f"{what}: CUDA error {rc}")
+
+
+def stream_handle(device):
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
