@@ -47,7 +47,7 @@ __device__ __constant__ u64 kP[4] = {0x43e1f593f0000001ULL, 0x2833e84879b97091UL
 constexpr u64 kNInv = 0xc2e1f593efffffffULL;
 
 // Offsets (in field elements) into the constant buffer, in the order the
-// wrapper (kernels/poseidon_bn254.py:_kernel_consts) lays them out.
+// wrapper (kernels/poseidon_bn254.const_elements) lays them out.
 constexpr int OFF_ARK0 = 0;                              // [4]
 constexpr int OFF_ARK_FIRST = OFF_ARK0 + WIDTH;          // [4][4]
 constexpr int OFF_ARK_SECOND = OFF_ARK_FIRST + 16;       // [4][4]

@@ -94,9 +94,13 @@ def _bcast_qe(x):
 
 def verify_fri(spec, dev, challenges, verdict):
     """Verify the FRI opening proof; returns the updated (B,) verdict."""
-    B = dev["pow_witness"][0].shape[0]
-    # Q from the data, as the reference does
     Q = dev["init_siblings"].shape[1]
+    if Q != spec.num_query_rounds:
+        # the JAX package takes Q from the data; here a batch with another
+        # count is malformed, not a proof to judge
+        raise ValueError(f"batch has {Q} FRI query rounds, the circuit "
+                         f"specifies {spec.num_query_rounds}")
+    B = dev["pow_witness"][0].shape[0]
     lde_bits = spec.lde_bits
     device = dev["init_siblings"].device
 

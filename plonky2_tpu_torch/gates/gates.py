@@ -24,10 +24,9 @@ import re
 import numpy as np
 import torch
 
-from plonky2_tpu.hash import poseidon_gl_constants as PK
-
 from ..fields import goldilocks as gl
 from ..fields import goldilocks_ext as qe
+from ..hash import poseidon_gl_constants as PK
 from ..hash.poseidon_gl import _mds_layer
 
 UNUSED_SELECTOR = (1 << 32) - 1

@@ -6,23 +6,25 @@ in the Montgomery domain.  Round structure: ark0; 4 full rounds (the 4th
 mixes with the P-matrix); 56 partial rounds with sparse S-maps; 4 full
 rounds (the last adds no ark); S-box x^5.
 
-``permute`` runs the hand-written CUDA kernel for a CUDA tensor
-(``kernels/poseidon_bn254.py``) and ``permute_plain`` -- the torch version
-that follows ``_permute_jnp`` -- for a CPU tensor.  Each partial round's
-sparse update is written as a 4x4 Montgomery-form matrix (identity terms use
-mont(1) = R mod p), so every linear layer has one form.
+``permute`` runs a hand-written CUDA kernel for a CUDA tensor (kernel A,
+``kernels/poseidon_bn254.py``, or the CIOS kernel,
+``kernels/poseidon_bn254_cios.py``, chosen by ``PLONKY2_TPU_PB_IMPL``) and
+``permute_plain`` -- the torch version that follows ``_permute_jnp`` -- for a
+CPU tensor.  Each partial round's sparse update is written as a 4x4
+Montgomery-form matrix (identity terms use mont(1) = R mod p), so every
+linear layer has one form.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
 
-from plonky2_tpu.hash import poseidon_bn254_constants as K
-
 from ..fields import bn254
+from . import poseidon_bn254_constants as K
 
 FULL_ROUNDS = 8
 PARTIAL_ROUNDS = 56
@@ -212,10 +214,28 @@ def permute_plain(state):
     return bn254._cond_sub_p(limbs)
 
 
+IMPLS = ("mxu", "cios")
+
+
+def kernel_impl():
+    """Which kernel ``permute`` runs on the GPU, read from
+    ``PLONKY2_TPU_PB_IMPL`` at each call as the JAX package reads it:
+    ``mxu`` (default) is kernel A (``csrc/poseidon_bn254.cu``, the
+    counterpart of ``poseidon_bn254_mxu.py``), ``cios`` the CIOS kernel
+    (``csrc/poseidon_bn254_cios.cu``, of ``poseidon_bn254_pallas.py``)."""
+    impl = os.environ.get("PLONKY2_TPU_PB_IMPL", "mxu")
+    if impl not in IMPLS:
+        raise ValueError(f"PLONKY2_TPU_PB_IMPL={impl!r}: expected one of {IMPLS}")
+    return impl
+
+
 def permute(state):
-    """Full permutation: the CUDA kernel on a CUDA tensor, else the plain
-    version."""
-    from ..kernels import poseidon_bn254 as kernel
+    """Full permutation: the selected CUDA kernel on a CUDA tensor, the plain
+    version on a CPU tensor under either setting."""
+    if kernel_impl() == "cios":
+        from ..kernels import poseidon_bn254_cios as kernel
+    else:
+        from ..kernels import poseidon_bn254 as kernel
     return kernel.permute(state)
 
 

@@ -20,9 +20,8 @@ import functools
 import numpy as np
 import torch
 
-from plonky2_tpu.hash import poseidon_gl_constants as K
-
 from ..fields import goldilocks as gl
+from . import poseidon_gl_constants as K
 
 WIDTH = 12
 RATE = 8

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (``plonky2_tpu_torch/csrc``).
 
 The sources have a plain C interface.  At first use ``nvcc`` compiles every
-``csrc/*.cu`` for Hopper (``sm_90a``) into one shared library,
-``build/plonky2_tpu_torch/libp2t_kernels.so`` at the repository root, and
-``ctypes`` loads it.  The library is rebuilt whenever the hash of the sources
+``csrc/*.cu`` for Hopper (``sm_90a``), one process per source, all started
+together, and links the objects into one shared library,
+``build/plonky2_tpu_torch/libp2t_kernels.so`` at the repository root, which
+``ctypes`` loads.  The library is rebuilt whenever the hash of the sources
 and flags changes.  Nothing here runs at import time.
 """
 
@@ -23,13 +24,15 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "plonky2_tpu_torch"
 LIB_NAME = "libp2t_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "p2t_poseidon_bn254_n_const": [],
     "p2t_poseidon_bn254_permute": [_P, _P, _P, _I, _P],
+    "p2t_poseidon_bn254_cios_n_const": [],
+    "p2t_poseidon_bn254_cios_permute": [_P, _P, _P, _I, _P],
     "p2t_transcript_n_const": [],
     "p2t_transcript": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
@@ -47,6 +50,13 @@ def _nvcc():
     if cand.exists():
         return str(cand)
     raise KernelError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def nvcc_version():
+    """The last line of ``nvcc --version`` (the release and build)."""
+    out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                         text=True, check=True).stdout
+    return out.strip().splitlines()[-1]
 
 
 def _sources():
@@ -72,13 +82,34 @@ def build(force=False):
             and stamp.read_text().strip() == digest):
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f".{s.stem}.{tag}.o" for s in sources]
+    tmp = BUILD_DIR / f".{LIB_NAME}.{tag}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for s, o in zip(sources, objs)]
+    try:
+        for s, proc in zip(sources, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise KernelError(f"nvcc failed on {s.name} "
+                                  f"({proc.returncode}):\n{err}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise KernelError(f"nvcc link failed ({link.returncode}):\n"
+                              f"{link.stderr}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for o in objs:
+            o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise KernelError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, lib)
     stamp.write_text(digest)
     return lib, seconds

@@ -27,47 +27,62 @@ from . import build
 permute_plain = pb.permute_plain
 
 
+def const_elements():
+    """The kernels' round constants, (N_CONST, 16) 16-bit Montgomery limbs in
+    the OFF_* order of ``csrc/poseidon_bn254.cu`` and
+    ``csrc/poseidon_bn254_cios.cu``: ark0, ark_first, ark_second, the M and
+    P matrices ([j][i]), the partial rounds' constants, each partial round's
+    sparse map as a row ``s_row`` (coefficients of new state 0) and a column
+    ``s_col`` (s0's coefficient in state k)."""
+    C = pb.consts()
+    sparse = C["sparse"]  # (56, 4 j, 4 i, 16)
+    parts = [C["ark0"], C["ark_first"], C["ark_second"], C["m_mat"],
+             C["p_mat"], C["part_c"], sparse[:, :, 0], sparse[:, 0, 1:]]
+    return np.concatenate([np.asarray(p).reshape(-1, 16) for p in parts])
+
+
+def pack_words(limbs, bits, n_const):
+    """(N, 16) 16-bit limbs -> int64 tensor of the little-endian ``bits``-bit
+    words, checked against the kernel's constant count ``n_const``."""
+    if limbs.shape[0] != n_const:
+        raise build.KernelError(
+            f"constant buffer has {limbs.shape[0]} elements, kernel wants {n_const}")
+    per = bits // 16
+    limbs = np.asarray(limbs, dtype=np.uint64).reshape(-1, 16 // per, per)
+    words = np.zeros(limbs.shape[:-1], np.uint64)
+    for k in range(per):
+        words |= limbs[..., k] << np.uint64(16 * k)
+    return words.reshape(-1)
+
+
 @functools.lru_cache(maxsize=4)
 def _kernel_consts(device):
-    """Constant buffer of the kernel: Montgomery-form field elements as
-    4 little-endian u64 words each, in the kernel's OFF_* order."""
-    C = pb.consts()
+    """Constant buffer of the kernel: 4 little-endian u64 words a field
+    element."""
+    words = pack_words(const_elements(), 64,
+                       build.library().p2t_poseidon_bn254_n_const())
+    return torch.from_numpy(words.view(np.int64).copy()).to(device)
 
-    def words(limbs):  # (..., 16) 16-bit limbs -> (..., 4) u64 words
-        limbs = np.asarray(limbs, dtype=np.uint64).reshape(-1, 4, 4)
-        w = (limbs[..., 0] | (limbs[..., 1] << np.uint64(16))
-             | (limbs[..., 2] << np.uint64(32)) | (limbs[..., 3] << np.uint64(48)))
-        return w.reshape(-1)
 
-    sparse = C["sparse"]  # (56, 4 j, 4 i, 16)
-    s_row = sparse[:, :, 0]          # (56, 4): coefficients of new state 0
-    s_col = sparse[:, 0, 1:]         # (56, 3): s0's coefficient in state k
-    parts = [C["ark0"], C["ark_first"], C["ark_second"], C["m_mat"],
-             C["p_mat"], C["part_c"], s_row, s_col]
-    buf = np.concatenate([words(p) for p in parts])
-    n_const = build.library().p2t_poseidon_bn254_n_const()
-    if buf.size != 4 * n_const:
-        raise build.KernelError(
-            f"constant buffer has {buf.size // 4} elements, kernel wants {n_const}")
-    return torch.from_numpy(buf.view(np.int64).copy()).to(device)
+def check_state(state, what):
+    """Raise unless ``state`` is a (..., 4, 16) int64 tensor on a CUDA device."""
+    if state.device.type != "cuda":
+        raise build.KernelError(f"no {what} kernel for {state.device}")
+    if state.dtype != torch.int64 or tuple(state.shape[-2:]) != (4, 16):
+        raise ValueError(f"expected (..., 4, 16) int64, got {state.dtype} "
+                         f"{tuple(state.shape)}")
 
 
 def permute(state):
     """state (..., 4, 16) int64 Montgomery limbs -> permuted, same shape."""
     if state.device.type == "cpu":
         return permute_plain(state)
-    if state.device.type != "cuda":
-        raise build.KernelError(f"no Poseidon-BN254 kernel for {state.device}")
-    if state.dtype != torch.int64 or tuple(state.shape[-2:]) != (4, 16):
-        raise ValueError(f"expected (..., 4, 16) int64, got {state.dtype} "
-                         f"{tuple(state.shape)}")
+    check_state(state, "Poseidon-BN254")
     src = state.contiguous()
     out = torch.empty_like(src)
-    n = src.numel() // 64
     consts = _kernel_consts(src.device)
-    lib = build.library()
-    rc = lib.p2t_poseidon_bn254_permute(
-        src.data_ptr(), out.data_ptr(), consts.data_ptr(), n,
+    rc = build.library().p2t_poseidon_bn254_permute(
+        src.data_ptr(), out.data_ptr(), consts.data_ptr(), src.numel() // 64,
         build.stream_handle(src.device))
     build.check(rc, "poseidon_bn254 launch")
     permute.launches += 1

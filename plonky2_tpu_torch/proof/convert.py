@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..fields import goldilocks as gl
+from .serde import VALID_MASK
 
 
 def gl_from_pair(pair, device="cpu"):
@@ -49,9 +50,13 @@ def from_reference(batch_np, device="cpu"):
     QE arrays (``op_*``, ``final_poly``, ``step*_evals``; trailing axis 2)
     become pairs of GL pairs; other uint64 arrays GL pairs; ``*_tovec``
     chunks are dropped (they enter the transcript through the observed
-    sequence built on the host); uint32 limb arrays become int64 tensors."""
+    sequence built on the host), as is an ``ingest_batch`` batch's validity
+    mask (``verify_batch`` applies it on the host); uint32 limb arrays become
+    int64 tensors."""
     dev = {}
     for k, v in batch_np.items():
+        if k == VALID_MASK:
+            continue
         v = np.asarray(v)
         if v.dtype == np.uint64:
             if k.endswith("_tovec"):

@@ -35,6 +35,7 @@ from ..fields import bn254
 from ..hash import poseidon_bn254 as pb
 
 TOVEC_CHUNKS = 5  # ceil(254 / 56)
+VALID_MASK = "valid_mask"  # the (B,) bool entry of an ``ingest_batch`` batch
 
 
 class InvalidProofError(ValueError):
@@ -287,7 +288,13 @@ def ingest_batch(spec, raw_pairs):
     InvalidProofError are replaced by a copy of the first valid proof (so
     the batch stays shape-consistent) and masked False; `errors` maps lane
     index -> error message.  Raises only if NO lane is valid (there is no
-    shape to batch).  Pass valid_mask to verifier.verify_batch.
+    shape to batch).
+
+    The batch carries the mask as its ``"valid_mask"`` entry, and
+    ``verifier.verify_batch`` always applies it, so a quarantined lane is
+    False even when the caller drops the returned mask.  (The JAX package's
+    batch has no such entry: there the lane verifies as the filler proof
+    unless the caller passes the mask.)
     """
     parsed, errors = [], {}
     for i, (raw, vraw) in enumerate(raw_pairs):
@@ -307,4 +314,6 @@ def ingest_batch(spec, raw_pairs):
             f"all {len(raw_pairs)} proofs in batch invalid: {errors}")
     filler = next(p for p in parsed if p is not None)
     parsed = [p if p is not None else filler for p in parsed]
-    return stack_proofs(parsed), valid_mask, errors
+    batch = stack_proofs(parsed)
+    batch[VALID_MASK] = valid_mask
+    return batch, valid_mask, errors

@@ -9,15 +9,20 @@ Counterpart of ``plonky2_tpu/verifier.py``:
                                 csrc/poseidon_gl_transcript.cu on the GPU)
     PLONK vanishing check    -> plonk_checks/vanishing.py
     FRI                      -> fri/verify.py (Merkle hashing through the
-                                CUDA kernel csrc/poseidon_bn254.cu on the GPU)
+                                CUDA kernel csrc/poseidon_bn254.cu, or
+                                csrc/poseidon_bn254_cios.cu under
+                                PLONKY2_TPU_PB_IMPL=cios, on the GPU)
 
-``verify_batch(spec, proofs, device=...)`` verifies B same-shape proofs at
-once and returns one boolean verdict per proof; an invalid proof is data,
-never an exception.
+``verify_batch(spec, proofs)`` verifies B same-shape proofs at once on the
+GPU and returns one boolean verdict per proof; an invalid proof is data,
+never an exception.  Only an explicit ``device="cpu"`` runs it on the CPU
+(through the kernels' plain torch versions); without a GPU the default
+raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -29,6 +34,23 @@ from .transcript import challenger as chal
 from .plonk_checks.vanishing import verify_plonk
 from .fri.verify import verify_fri
 from .proof.convert import from_reference
+from .proof.serde import VALID_MASK, stack_proofs
+
+
+def resolve_device(device):
+    """The torch device to run on; a CUDA device must exist, never a silent
+    fall-back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the verifier runs on the GPU "
+                           "unless asked for the CPU (device=\"cpu\")")
+    return device
+
+
+def device_name(device):
+    """The card's name (``torch.cuda.get_device_name``), or ``cpu``."""
+    device = torch.device(device)
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 
 def proof_to_device(proof, device):
@@ -53,16 +75,25 @@ def _extract_challenges(schedule, states):
     }
 
 
-def verify_device(spec, schedule, dev, obs, diagnostics=False):
+def verify_device(spec, schedule, dev, obs, diagnostics=False, timer=None):
     """Verify a tensor batch: dev from ``proof_to_device``, obs the observed
-    sequence as a GL pair (B, n_obs) on the same device."""
+    sequence as a GL pair (B, n_obs) on the same device.  With a
+    ``utils.profiling.StageTimer`` each stage is timed on its own."""
+    def stage(name):
+        return timer.stage(name) if timer else contextlib.nullcontext()
+
     B = obs[0].shape[0]
-    pi_hash = pgl.hash_no_pad(dev["public_inputs"])
-    states = chal.run_transcript(schedule, obs, pi_hash)
-    challenges = _extract_challenges(schedule, states)
+    with stage("pi_hash"):
+        pi_hash = pgl.hash_no_pad(dev["public_inputs"])
+    with stage("transcript"):
+        states = chal.run_transcript(schedule, obs, pi_hash)
+    with stage("challenges"):
+        challenges = _extract_challenges(schedule, states)
     ones = torch.ones((B,), dtype=torch.bool, device=obs[0].device)
-    plonk_ok = verify_plonk(spec, dev, challenges, pi_hash, ones)
-    fri_ok = verify_fri(spec, dev, challenges, ones)
+    with stage("plonk"):
+        plonk_ok = verify_plonk(spec, dev, challenges, pi_hash, ones)
+    with stage("fri"):
+        fri_ok = verify_fri(spec, dev, challenges, ones)
     verdict = plonk_ok & fri_ok
     if diagnostics:
         return {"verdict": verdict, "plonk_ok": plonk_ok, "fri_ok": fri_ok}
@@ -81,21 +112,24 @@ def prepare(spec, proof_batch, device):
     return schedule, proof_to_device(proof_batch, device), obs
 
 
-def verify_batch(spec, proof_batch, valid_mask=None, device="cpu",
+def verify_batch(spec, proof_batch, valid_mask=None, device="cuda",
                  diagnostics=False):
     """Verify a batched serde dict (leading axis B).  Returns (B,) bool.
 
-    valid_mask: optional (B,) bool from ``serde.ingest_batch``; lanes that
-    failed validation at load time are forced to False.  With diagnostics,
-    returns a dict of (B,) bool arrays: verdict, plonk_ok, fri_ok."""
+    Runs on the GPU unless ``device="cpu"``.  Lanes that failed validation at
+    load time are always False: the mask that ``serde.ingest_batch`` stores
+    in the batch is applied, and so is ``valid_mask`` when the caller passes
+    one (optional (B,) bool).  With diagnostics, returns a dict of (B,) bool
+    arrays: verdict, plonk_ok, fri_ok."""
+    device = resolve_device(device)
     schedule, dev, obs = prepare(spec, proof_batch, device)
     out = verify_device(spec, schedule, dev, obs, diagnostics=True)
     out = {k: v.cpu().numpy() for k, v in out.items()}
-    if valid_mask is not None:
-        out["verdict"] = out["verdict"] & np.asarray(valid_mask, dtype=bool)
+    for mask in (proof_batch.get(VALID_MASK), valid_mask):
+        if mask is not None:
+            out["verdict"] = out["verdict"] & np.asarray(mask, dtype=bool)
     return out if diagnostics else out["verdict"]
 
 
-def verify_one(spec, proof, device="cpu"):
-    from .proof.serde import stack_proofs
+def verify_one(spec, proof, device="cuda"):
     return bool(verify_batch(spec, stack_proofs([proof]), device=device)[0])

@@ -15,7 +15,9 @@ import torch
 
 from plonky2_tpu_torch.fields import bn254
 from plonky2_tpu_torch.fields import goldilocks as gl
+from plonky2_tpu_torch.hash import poseidon_bn254 as pb
 from plonky2_tpu_torch.kernels import poseidon_bn254 as kb
+from plonky2_tpu_torch.kernels import poseidon_bn254_cios as kc
 from plonky2_tpu_torch.kernels import poseidon_gl_transcript as kt
 from plonky2_tpu_torch.proof.spec import load_circuit_spec
 from plonky2_tpu_torch.transcript import challenger as chal
@@ -60,6 +62,34 @@ def test_poseidon_bn254_kernel_takes_strided_input(dev):
 def test_poseidon_bn254_kernel_rejects_other_dtypes(dev):
     with pytest.raises(ValueError):
         kb.permute(torch.zeros((2, 4, 16), dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("shape", [(1,), (3, 2), (1000,)])
+def test_poseidon_bn254_cios_kernel_matches_plain(dev, shape):
+    st = _bn_states(shape, seed=len(shape) * 2000 + shape[0]).to(dev)
+    before = kc.permute.launches
+    got = kc.permute(st)
+    assert kc.permute.launches == before + 1
+    want = kc.permute_plain(st)
+    torch.cuda.synchronize()
+    assert got.shape == st.shape and torch.equal(got, want)
+
+
+def test_poseidon_bn254_cios_kernel_rejects_other_dtypes(dev):
+    with pytest.raises(ValueError):
+        kc.permute(torch.zeros((2, 4, 16), dtype=torch.int32, device=dev))
+
+
+def test_permute_selects_the_kernel_by_env(dev, monkeypatch):
+    st = _bn_states((4,), seed=11).to(dev)
+    counts = (kb.permute.launches, kc.permute.launches)
+    monkeypatch.setenv("PLONKY2_TPU_PB_IMPL", "cios")
+    got_c = pb.permute(st)
+    monkeypatch.setenv("PLONKY2_TPU_PB_IMPL", "mxu")
+    got_a = pb.permute(st)
+    assert (kb.permute.launches, kc.permute.launches) == (counts[0] + 1,
+                                                         counts[1] + 1)
+    assert torch.equal(got_c, got_a)
 
 
 def test_transcript_kernel_matches_plain(dev):

@@ -9,6 +9,8 @@ same input.  The per-lane verdicts must agree with it and equal
 to in test_verify_e2e.py.  The JAX package's own ``serde.stack_proofs``
 batch, converted by ``proof.convert.from_reference``, must give the same
 verdicts.  Verdicts are booleans, compared exactly."""
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from plonky2_tpu.proof import serde as jserde
 from plonky2_tpu.proof.spec import load_circuit_spec as jload_spec
 from plonky2_tpu_torch import verifier
 from plonky2_tpu_torch.fields import goldilocks as gl
+from plonky2_tpu_torch.fri.verify import verify_fri
 from plonky2_tpu_torch.proof import convert, serde
 from plonky2_tpu_torch.proof.fixtures import decode_block_lanes, load_fixture
 
@@ -30,7 +33,8 @@ def decode_block():
     spec, raws, vraw = decode_block_lanes()
     batch, mask, errors = serde.ingest_batch(spec, [(r, vraw) for r in raws])
     assert not errors
-    out = verifier.verify_batch(spec, batch, valid_mask=mask, diagnostics=True)
+    out = verifier.verify_batch(spec, batch, valid_mask=mask, device="cpu",
+                                diagnostics=True)
     return dict(spec=spec, raws=raws, vraw=vraw, batch=batch, out=out)
 
 
@@ -63,7 +67,7 @@ def test_reference_batch_through_from_reference(decode_block):
         flat_a = [t for t in _leaves(v)]
         flat_b = [t for t in _leaves(converted[k])]
         assert all(torch.equal(a, b) for a, b in zip(flat_a, flat_b)), k
-    got = verifier.verify_batch(decode_block["spec"], jbatch)
+    got = verifier.verify_batch(decode_block["spec"], jbatch, device="cpu")
     assert got.tolist() == EXPECTED
 
 
@@ -77,7 +81,8 @@ def test_step_fixture_accepted():
     spec, raw, vraw = load_fixture("testdata/step")
     jspec = jload_spec("testdata/step/common_circuit_data.json")
     assert R.verify(jspec, raw, vraw)
-    assert verifier.verify_one(spec, serde.ingest_proof(spec, raw, vraw))
+    assert verifier.verify_one(spec, serde.ingest_proof(spec, raw, vraw),
+                               device="cpu")
 
 
 def test_convert_helpers_round_trip():
@@ -91,3 +96,52 @@ def test_convert_helpers_round_trip():
     assert np.array_equal(back[0], pair[0]) and np.array_equal(back[1], pair[1])
     limbs = rng.integers(0, 1 << 16, size=(2, 4, 16)).astype(np.uint32)
     assert np.array_equal(convert.bn_to_limbs(convert.bn_from_limbs(limbs)), limbs)
+
+
+def test_quarantined_lane_is_false_without_valid_mask(decode_block):
+    """Hazard 1 repaired: the batch of ``ingest_batch`` carries its mask and
+    ``verify_batch`` applies it, so the lane filled with a copy of the valid
+    proof is False though the caller drops the mask.  This deliberately
+    differs from the JAX package, whose batch has no mask entry: there lane 1
+    is the filler proof, bit for bit, and verifies as True unless the caller
+    passes the mask."""
+    spec, raw, vraw = (decode_block["spec"], decode_block["raws"][0],
+                       decode_block["vraw"])
+    truncated = copy.deepcopy(raw)
+    truncated["proof"]["openings"]["wires"] = \
+        truncated["proof"]["openings"]["wires"][:-1]
+    pairs = [(raw, vraw), (truncated, vraw)]
+    batch, mask, errors = serde.ingest_batch(spec, pairs)
+    assert mask.tolist() == [True, False] and list(errors) == [1]
+    assert batch[serde.VALID_MASK].tolist() == [True, False]
+    assert verifier.verify_batch(spec, batch, device="cpu").tolist() == \
+        [True, False]
+
+    jspec = jload_spec("testdata/decode_block/common_circuit_data.json")
+    jbatch, jmask, _ = jserde.ingest_batch(jspec, pairs)
+    assert serde.VALID_MASK not in jbatch and jmask.tolist() == [True, False]
+    assert all(np.array_equal(v[1], v[0]) for v in jbatch.values())
+
+
+def test_wrong_query_round_count_raises(decode_block):
+    """Hazard 2 repaired: Q comes from the spec; a batch with one query
+    round fewer is malformed and raises before any check runs."""
+    spec, batch = decode_block["spec"], decode_block["batch"]
+    Q = spec.num_query_rounds
+    per_query = [k for k in batch if k.startswith(("init_", "step"))]
+    cut = {k: (v[:, :Q - 1] if k in per_query else v) for k, v in batch.items()}
+    dev = verifier.proof_to_device(cut, "cpu")
+    with pytest.raises(ValueError, match="query rounds"):
+        verify_fri(spec, dev, challenges=None, verdict=None)
+
+
+def test_verify_batch_needs_a_gpu_unless_asked_for_the_cpu(decode_block):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="device=.cpu."):
+        verifier.verify_batch(decode_block["spec"], decode_block["batch"])
+    with pytest.raises(RuntimeError):
+        verifier.verify_one(decode_block["spec"],
+                            serde.ingest_proof(decode_block["spec"],
+                                               decode_block["raws"][0],
+                                               decode_block["vraw"]))
