@@ -6,15 +6,19 @@
 2. builds the hand-written kernels from plonky2_tpu_torch/csrc (one nvcc per
    source, all started together);
 3. checks each kernel bit-exact against its plain torch version on the card,
-   at the main path's shapes, and times it beside its plain version; the two
-   Poseidon-BN254 kernels (A, the default, and the CIOS kernel) are timed in
-   turns (A, CIOS, CIOS, A);
+   at the main path's shapes and at the shapes its tiling makes risky
+   (Poseidon-BN254: lane counts off kernel A's 64-lane tile and strided
+   input; the transcript: odd batches, on both fixtures' schedules), and
+   times it beside its plain version; the two Poseidon-BN254 kernels (A, the
+   default, and the CIOS kernel) are timed in turns (A, CIOS, CIOS, A); one
+   dependent Goldilocks product's latency is timed for the transcript's
+   latency bound; ``ptxas -v``'s report of every kernel is printed;
 4. the main path under PLONKY2_TPU_PB_IMPL=mxu: verifies 256 copies of
    testdata/step with one corrupted lane (only that lane may be rejected)
    and the decode_block batch [valid, bad opening, bad leaf, bad pow] (must
-   give [True, False, False, False]); kernel A and the transcript kernel
-   must have been launched, the CIOS kernel not; then the step batch again
-   for the wall time per batch;
+   give [True, False, False, False]); kernel A must have been launched 123
+   times and the transcript kernel twice, the CIOS kernel not; then the step
+   batch again for the wall time per batch;
 5. the same path under PLONKY2_TPU_PB_IMPL=cios: the same verdicts, the CIOS
    kernel and the transcript kernel launched, kernel A not;
 6. stage times of the step batch (tools/profile_verify) under both settings;
@@ -63,20 +67,37 @@ STEP_BATCH = 256
 CORRUPT_LANE = 1
 DECODE_EXPECTED = [True, False, False, False]
 
-# Bounds: the larger of bytes over the memory rate and 32-bit integer
-# multiply-adds (IMAD) over the card's IMAD rate, 132 SMs x 64 a clock at the
-# SM clock that nvidia-smi reports as clocks.max.sm.
+# Bounds: the larger of bytes over the memory rate and the operations over
+# their unit's rate: 32-bit integer multiply-adds (IMAD) at 132 SMs x 64 a
+# clock at the SM clock that nvidia-smi reports as clocks.max.sm, int8
+# tensor-core products at the published 1,979 TOP/s.
 HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
 SMS, IMAD_PER_SM_CLOCK = 132, 64
-# A Poseidon-BN254 permutation: 784 256-bit products and 520 Montgomery
-# reductions (the fused form's count), each 8 x 8 32-bit words, lo and hi.
-BN254_PERM_IMADS = (784 + 520) * 2 * 8 * 8
+# A Poseidon-BN254 permutation, in the least costly of its two known forms:
+# the CIOS form is 784 256-bit products and 520 Montgomery reductions, each
+# 8 x 8 32-bit words, lo and hi (128 IMADs); the tensor-core form keeps 264
+# S-box products and 520 reductions on the IMADs and puts the 64 rounds'
+# linear layers on the int8 tensor cores, 128 x 128 byte products each
+# (2 operations a product).
+BN254_CIOS_IMADS = (784 + 520) * 128
+BN254_TC_IMADS = (264 + 520) * 128
+BN254_TC_INT8_OPS = 64 * 128 * 128 * 2
 # A Poseidon-GL permutation: 1099 Goldilocks products (8 full rounds of 12
 # x^7 S-boxes at 4 products, 22 partial S-boxes, the 11 x 11 initial matrix,
 # 22 sparse partial-round layers of 23) at 2 x 2 x 2 IMADs, and 8 x 144
 # products by the MDS matrix's small entries at 2 x 2.
 GL_PERM_IMADS = (4 * (8 * 12 + 22) + 11 * 11 + 22 * 23) * 8 + 8 * 144 * 4
+# Dependent Goldilocks products on one permutation's critical path (counted
+# in csrc/poseidon_gl_transcript.cu): 8 full rounds of 4, the initial
+# matrix, 22 partial rounds of 4.
+GL_PERM_DEPTH = 8 * 4 + 1 + 22 * 4
 NO_LIBRARY = None  # no PyTorch call computes a Poseidon permutation
+BN_LANES_RISKY = [1, 63, 65, 1000, 28673]  # off kernel A's 64-lane tile
+TRANSCRIPT_BATCHES = [1, 3, 17, STEP_BATCH, STEP_BATCH + 1]
+# The main path's launches: step B=256 and decode_block B=4, one Poseidon-BN254
+# launch per leaf-scan step and Merkle level, one transcript launch a batch.
+EXPECTED_BN254_LAUNCHES, EXPECTED_TRANSCRIPT_LAUNCHES = 123, 2
 
 
 def nvidia_smi(query):
@@ -91,10 +112,36 @@ def imad_per_s():
     return SMS * IMAD_PER_SM_CLOCK * mhz * 1e6
 
 
-def bound(imads, nbytes, rate):
-    """(ms, what bounds it) for the larger of the two times."""
-    ops_ms, bytes_ms = imads / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def bound(ops_ms, nbytes):
+    """(ms, what bounds it) for the larger of the operations' time and the
+    bytes' time."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def bn254_bound(lanes, rate):
+    """(ms, what bounds it, form) of ``lanes`` Poseidon-BN254 permutations:
+    the least time over the function's two known forms; each lane reads and
+    writes 512 bytes."""
+    cios_ms = lanes * BN254_CIOS_IMADS / rate * 1e3
+    tc_ms = max(lanes * BN254_TC_IMADS / rate,
+                lanes * BN254_TC_INT8_OPS / INT8_OPS_PER_S) * 1e3
+    form = ("tensor-core form: IMADs" if tc_ms <= cios_ms
+            else "CIOS form: IMADs")
+    ms, by = bound(min(cios_ms, tc_ms), lanes * 1024)
+    return ms, by, form if by == "operations" else "bytes"
+
+
+def transcript_bound(n_perms, batch, nbytes, rate, latency_s):
+    """(ms, what bounds it, which bound) of the scan: the larger of its IMAD
+    throughput bound and its latency bound n_perms x depth x latency."""
+    imad_ms = n_perms * batch * GL_PERM_IMADS / rate * 1e3
+    lat_ms = n_perms * GL_PERM_DEPTH * latency_s * 1e3
+    ms, by = bound(max(imad_ms, lat_ms), nbytes)
+    if by == "bytes":
+        return ms, by, "bytes"
+    return ms, by, ("latency of dependent products" if lat_ms >= imad_ms
+                    else "IMAD throughput")
 
 
 def cuda_ms(fn, iters):
@@ -134,22 +181,24 @@ def random_bn_states(n, rng):
     return torch.as_tensor(vals)
 
 
-def check_bn254_kernels(dev, rng, lanes_list):
+def check_bn254_kernels(dev, rng, lanes_list, timed_lanes):
     """Both Poseidon-BN254 kernels bit-exact against the plain version at
-    each lane count; at the last one, the kernels' times in turns (A, CIOS,
-    CIOS, A) and each plain version's time."""
+    each lane count and on a strided input; at ``timed_lanes``, the kernels'
+    times in turns (A, CIOS, CIOS, A) and each plain version's time."""
     err = {"a": 0, "cios": 0}
-    for lanes in lanes_list:
-        st = random_bn_states(lanes, rng).to(dev)
-        want = kb.permute_plain(st)
+    cases = [random_bn_states(n, rng).to(dev) for n in lanes_list]
+    cases.append(random_bn_states(1000, rng).to(dev).reshape(40, 25, 4, 16)
+                 .transpose(0, 1))  # strided
+    for st in cases:
+        want = kb.permute_plain(st.contiguous())
         for key, kernel in (("a", kb), ("cios", kc)):
             got = kernel.permute(st)
             torch.cuda.synchronize()
             err[key] = max(err[key], int((got - want).abs().max()))
             if not torch.equal(got, want):
                 raise AssertionError(f"poseidon_bn254 kernel {key} differs at "
-                                     f"{lanes} lanes")
-    st = random_bn_states(lanes_list[-1], rng).to(dev)
+                                     f"shape {tuple(st.shape)}")
+    st = random_bn_states(timed_lanes, rng).to(dev)
     turns = [("a", kb), ("cios", kc), ("cios", kc), ("a", kb)]
     ms = {"a": [], "cios": []}
     for key, kernel in turns:
@@ -159,25 +208,64 @@ def check_bn254_kernels(dev, rng, lanes_list):
     return err, ms, plain
 
 
-def check_transcript_kernel(dev, rng, spec):
-    schedule = chal.build_schedule(spec)
-    obs_np = rng.integers(0, gl.P, size=(STEP_BATCH, schedule.n_obs),
+def transcript_inputs(dev, rng, schedule, batch):
+    obs_np = rng.integers(0, gl.P, size=(batch, schedule.n_obs),
                           dtype=np.uint64)
     obs_np[0, :3] = [0, 1, gl.P - 1]
     obs = gl.split_u64(obs_np, dev)
-    pi = gl.split_u64(rng.integers(0, gl.P, size=(STEP_BATCH, 4),
+    pi = gl.split_u64(rng.integers(0, gl.P, size=(batch, 4),
                                    dtype=np.uint64), dev)
-    got = kt.run_transcript_kernel(schedule, obs, pi)
-    want = kt.run_transcript_plain(schedule, obs, pi)
-    torch.cuda.synchronize()
-    err = max(int((got[i] - want[i]).abs().max()) for i in range(2))
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        raise AssertionError("transcript kernel differs from the plain scan")
+    return obs, pi
+
+
+def check_transcript_kernel(dev, rng, specs):
+    """The transcript kernel bit-exact against the plain scan at each batch
+    of TRANSCRIPT_BATCHES on each spec's schedule (the first lanes of one
+    input, whose lanes are independent, so one plain scan covers them all);
+    times at B=STEP_BATCH on the first (step) schedule."""
+    err = 0
+    for spec in specs:
+        schedule = chal.build_schedule(spec)
+        obs, pi = transcript_inputs(dev, rng, schedule, max(TRANSCRIPT_BATCHES))
+        want = kt.run_transcript_plain(schedule, obs, pi)
+        for batch in TRANSCRIPT_BATCHES:
+            got = kt.run_transcript_kernel(
+                schedule, tuple(t[:batch] for t in obs),
+                tuple(t[:batch] for t in pi))
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                err = max(err, int((g - w[:, :batch]).abs().max()))
+                if not torch.equal(g, w[:, :batch]):
+                    raise AssertionError(
+                        f"transcript kernel differs from the plain scan at "
+                        f"B={batch}, {schedule.n_perms} permutations")
+    schedule = chal.build_schedule(specs[0])
+    obs, pi = transcript_inputs(dev, rng, schedule, STEP_BATCH)
     ms = cuda_ms(lambda: kt.run_transcript_kernel(schedule, obs, pi), 20)
     plain_ms = cuda_ms(lambda: kt.run_transcript_plain(schedule, obs, pi), 1)
     # bytes at the wrapper: obs and pi in, the states out, each a GL pair
     nbytes = 2 * 8 * STEP_BATCH * (schedule.n_obs + 4 + schedule.n_perms * 12)
     return err, ms, plain_ms, schedule.n_perms, nbytes
+
+
+def gl_mul_latency(dev):
+    """Seconds of one dependent Goldilocks product on the card, from the
+    one-thread chain probe of csrc/poseidon_gl_transcript.cu: the time of
+    a chain of n2 products less that of n1, over n2 - n1."""
+    x0, n1, n2 = 3, 1 << 14, 1 << 17
+    got = int(kt.mul_chain(x0, n2, dev).item()) % (1 << 64)
+    if got != pow(x0, pow(2, n2, gl.P - 1), gl.P):
+        raise AssertionError("gl_mul chain probe computes a wrong value")
+    t1 = min(cuda_ms(lambda: kt.mul_chain(x0, n1, dev), 3) for _ in range(3))
+    t2 = min(cuda_ms(lambda: kt.mul_chain(x0, n2, dev), 3) for _ in range(3))
+    return (t2 - t1) / 1e3 / (n2 - n1)
+
+
+def ptxas_report():
+    """Per kernel: registers, shared memory and spills, from ``ptxas -v``."""
+    keep = ("Compiling entry function", "registers", "spill")
+    return [line.strip() for line in build.ptxas_log().splitlines()
+            if any(k in line for k in keep)]
 
 
 def decode_block_batch():
@@ -225,6 +313,12 @@ def main_path(impl, dev, spec_step, batch_step, expected, spec_db, batch_db,
     for name in (used, "poseidon_gl_transcript"):
         if launches[name] <= 0:
             raise AssertionError(f"{impl}: {name} kernel not launched")
+    got = (launches[used], launches["poseidon_gl_transcript"])
+    if got != (EXPECTED_BN254_LAUNCHES, EXPECTED_TRANSCRIPT_LAUNCHES):
+        raise AssertionError(f"{impl}: launches {launches}, expected "
+                             f"{EXPECTED_BN254_LAUNCHES} of {used} and "
+                             f"{EXPECTED_TRANSCRIPT_LAUNCHES} of the "
+                             f"transcript kernel")
     if launches[unused] != 0:
         raise AssertionError(f"{impl}: {unused} kernel launched "
                              f"{launches[unused]} times")
@@ -286,23 +380,34 @@ def main():
     build.library()
     print(f"kernel build: {build_s:.2f} s (nvcc, sm_90a, one process per "
           f"source) [{card}]")
+    for line in ptxas_report():
+        print(f"ptxas: {line}")
 
-    # -- 2. kernels vs plain versions at the main path's shapes
+    # -- 2. kernels vs plain versions at the main path's shapes and the
+    #       shapes their tiling makes risky
     rng = np.random.default_rng(2024)
     spec_step, raw_step, vraw_step = load_fixture(TESTDATA / "step")
+    spec_db_only = load_fixture(TESTDATA / "decode_block")[0]
     Q = spec_step.num_query_rounds
     lanes = [STEP_BATCH * Q, STEP_BATCH * Q * 4]  # leaf scans, Merkle paths
-    bn_err, bn_ms, bn_plain = check_bn254_kernels(dev, rng, lanes)
-    print(f"poseidon_bn254 kernels A and CIOS: bit-exact at {lanes} lanes; "
-          f"{lanes[-1]} lanes in turns A, CIOS, CIOS, A: "
-          f"{bn_ms['a'][0]:.4f}, {bn_ms['cios'][0]:.4f}, "
+    bn_lanes = sorted(lanes + BN_LANES_RISKY)
+    bn_err, bn_ms, bn_plain = check_bn254_kernels(dev, rng, bn_lanes,
+                                                  lanes[-1])
+    print(f"poseidon_bn254 kernels A and CIOS: bit-exact at {bn_lanes} lanes "
+          f"and a strided input; {lanes[-1]} lanes in turns A, CIOS, CIOS, "
+          f"A: {bn_ms['a'][0]:.4f}, {bn_ms['cios'][0]:.4f}, "
           f"{bn_ms['cios'][1]:.4f}, {bn_ms['a'][1]:.4f} ms; plain "
           f"{bn_plain['a']:.2f} and {bn_plain['cios']:.2f} ms [{card}]")
     tr_err, tr_ms, tr_plain_ms, n_perms, tr_bytes = check_transcript_kernel(
-        dev, rng, spec_step)
-    print(f"transcript: bit-exact, step schedule ({n_perms} permutations) at "
-          f"B={STEP_BATCH}: kernel {tr_ms:.4f} ms, plain {tr_plain_ms:.2f} ms "
-          f"[{card}]")
+        dev, rng, [spec_step, spec_db_only])
+    print(f"transcript: bit-exact at B={TRANSCRIPT_BATCHES} on the step and "
+          f"decode_block schedules; step schedule ({n_perms} permutations) "
+          f"at B={STEP_BATCH}: kernel {tr_ms:.4f} ms, plain "
+          f"{tr_plain_ms:.2f} ms [{card}]")
+    latency_s = gl_mul_latency(dev)
+    print(f"one dependent Goldilocks product: {latency_s * 1e9:.3f} ns "
+          f"({latency_s * rate / (SMS * IMAD_PER_SM_CLOCK):.1f} cycles at "
+          f"clocks.max.sm) [{card}]")
 
     # -- 3. the main path (mxu, the default), then the cios path
     good = serde.ingest_proof(spec_step, raw_step, vraw_step)
@@ -384,34 +489,37 @@ def main():
     run_cli(["bench", "--circuit", str(TESTDATA / "step"),
              "--batch", str(STEP_BATCH), "--iters", "3"], card)
 
-    bn_bound, bn_by = bound(lanes[-1] * BN254_PERM_IMADS, lanes[-1] * 1024,
-                            rate)
-    tr_bound, tr_by = bound(n_perms * STEP_BATCH * GL_PERM_IMADS, tr_bytes,
-                            rate)
+    bn_bound, bn_by, bn_form = bn254_bound(lanes[-1], rate)
+    tr_bound, tr_by, tr_form = transcript_bound(n_perms, STEP_BATCH, tr_bytes,
+                                                rate, latency_s)
     kernels = [
         {"name": "poseidon_bn254", "route": "cuda",
          "source": "plonky2_tpu_torch/csrc/poseidon_bn254.cu",
          "replaces": "plonky2_tpu/kernels/poseidon_bn254_mxu.py:253",
          "launches": launches["poseidon_bn254"], "max_abs_err": bn_err["a"],
          "ms": float(np.mean(bn_ms["a"])), "plain_ms": bn_plain["a"],
-         "bound_ms": bn_bound, "bound_by": bn_by, "library_ms": NO_LIBRARY},
+         "bound_ms": bn_bound, "bound_by": bn_by, "bound_form": bn_form,
+         "library_ms": NO_LIBRARY},
         {"name": "poseidon_bn254_cios", "route": "cuda",
          "source": "plonky2_tpu_torch/csrc/poseidon_bn254_cios.cu",
          "replaces": "plonky2_tpu/kernels/poseidon_bn254_pallas.py:263",
          "launches": launches_c["poseidon_bn254_cios"],
          "max_abs_err": bn_err["cios"],
          "ms": float(np.mean(bn_ms["cios"])), "plain_ms": bn_plain["cios"],
-         "bound_ms": bn_bound, "bound_by": bn_by, "library_ms": NO_LIBRARY},
+         "bound_ms": bn_bound, "bound_by": bn_by, "bound_form": bn_form,
+         "library_ms": NO_LIBRARY},
         {"name": "poseidon_gl_transcript", "route": "cuda",
          "source": "plonky2_tpu_torch/csrc/poseidon_gl_transcript.cu",
          "replaces": "plonky2_tpu/kernels/poseidon_gl_pallas.py:230",
          "launches": launches["poseidon_gl_transcript"], "max_abs_err": tr_err,
          "ms": tr_ms, "plain_ms": tr_plain_ms,
-         "bound_ms": tr_bound, "bound_by": tr_by, "library_ms": NO_LIBRARY},
+         "bound_ms": tr_bound, "bound_by": tr_by, "bound_form": tr_form,
+         "library_ms": NO_LIBRARY},
     ]
     print(f"kernel bounds at the timed shapes: BN254 {lanes[-1]} lanes "
-          f"{bn_bound:.4f} ms, transcript {n_perms} x {STEP_BATCH} "
-          f"permutations {tr_bound:.4f} ms [{card}]")
+          f"{bn_bound:.4f} ms ({bn_form}), transcript {n_perms} x "
+          f"{STEP_BATCH} permutations {tr_bound:.4f} ms ({tr_form}: "
+          f"{n_perms} x {GL_PERM_DEPTH} x {latency_s * 1e9:.3f} ns) [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,53 +1,88 @@
 // Poseidon-BN254 permutation (width 4, x^5, 8 full + 56 partial rounds) for
-// Hopper (sm_90a).
+// Hopper (sm_90a): kernel A, each round's linear layer one exact byte-matrix
+// product on the int8 tensor cores.
 //
 // Replaces the Pallas TPU kernel plonky2_tpu/kernels/poseidon_bn254_mxu.py
 // (permute / permute_lanes -> _kernel), which computed the same permutation
 // with its linear layers as exact bf16 byte-matrix products on the MXU.
+// Canonical Montgomery state in, canonical state out, bit-exact with the
+// torch plain version (hash/poseidon_bn254.permute_plain).
 //
-// Design: one thread per permutation lane.  The state is 4 field elements of
-// 4 x 64-bit words, held in registers for the whole permutation.  Montgomery
-// multiplication (R = 2^256) is CIOS on 64-bit words with __umul64hi and
-// carry-chained adds; x^5 is sqr, sqr, mul.  The linear layers are
-// Montgomery products by the Montgomery-form constants, read from one device
-// buffer (warp-uniform loads, served from L1).  Every value is kept
-// canonical (< p), so the output is bit-exact with the torch plain version
-// and with the reference's _permute_jnp.
+// The idea is the TPU kernel's: multiplication by a constant is linear over
+// the input's bytes, c x = sum_k x_k (c 2^(8k) mod p), so a round's whole
+// linear layer out_i = sum_j c_(j,i) s_j is one product
+//   [lanes x 128 u8] . [128 x 128 u8] -> s32,
+// a lane's row being its 4 elements' 32 little-endian bytes, and the round's
+// matrix Bt[i*32 + m][j*32 + k] = byte m of (c_(j,i) 2^(8k) mod p) (built by
+// kernels/poseidon_bn254.round_matrices).  It is exact: a column sum is at
+// most 128 * 255^2 < 2^23; an output's 32 columns recombine to a value below
+// 128 * 255 * p < 2^15 p, for any row below 2^256; one Montgomery reduction
+// by 2^256 gives a value below p + 2^13, and one subtraction of p makes it
+// canonical.  The matrices hold Montgomery-form constants, so the reduction's
+// 2^-256 keeps the state in Montgomery form.
 //
-// What bounds it on the H100: integer multiply throughput.  One permutation
-// is ~500 256-bit Montgomery products (~16 64-bit multiply-highs each); the
-// state never leaves registers and each lane reads/writes 1 KB of limbs, so
-// memory is not the limit.  Lanes are independent, so a launch of
-// 256 x 28 x 4 lanes fills all 132 SMs.
+// What bounds it on the H100: 32-bit integer multiply-adds (IMAD, 64 a clock
+// on each of the 132 SMs).  The CUDA cores keep the S-boxes (264 Montgomery
+// products a permutation) and 520 reductions (264 of the S-boxes, 256 of the
+// linear layers), 128 IMADs each: 100,352 IMADs a permutation, against the
+// CIOS form's 166,912.  The tensor-core work (64 x 128^2 byte products) is a
+// sixth of the IMAD time at 1,979 TOP/s, and a lane's 1 KB of limbs less.
 //
-// Next steps: the linear layers as exact int8 byte-matrix products on the
-// tensor cores (mma / wgmma with s32 accumulation, column sums
-// < 128 * 255^2 < 2^31), as the MXU kernel does on the TPU, leaving only the
-// S-box chains and one REDC per round on the CUDA cores.  Then the callers'
-// loops (fri/verify.py _hash_leaves_scan and _merkle_chain; the reference's
-// plonky2_tpu/fri/verify.py:52-102), one launch per absorb step and per tree
-// level: capture them in a CUDA graph, or fuse each oracle's leaf scan and
-// Merkle chain into one launch.
+// The design:
+// - a block owns a tile of 64 lanes, one thread each (2 warps).  64 rather
+//   than 128 lanes: at the main path's largest launch (28672 lanes) that is
+//   448 blocks, 4 of them (55 KB of shared memory each) resident on an SM,
+//   so all are in flight at once and the SMs are evenly loaded;
+// - each warp owns the 32 rows of its lanes in the A tile, so the A tile and
+//   the s32 read-back need only __syncwarp; rows are padded to 144 bytes so
+//   that ldmatrix, the 16-byte row stores and the read-back have no bank
+//   conflicts;
+// - each round: (1) CUDA cores, one lane a thread: x^5 plus the round
+//   constant on the 4 elements (full round) or element 0 (partial round),
+//   CIOS on 32-bit words (bn254_mont.cuh) with the rows as 64-bit
+//   multiply-adds rather than PTX carry-flag chains.  With one lane a thread
+//   and 28672 lanes an SM holds only ~7 warps, so the chains' latency, not
+//   the IMAD rate, sets the time; the carry-flag form did not gain from
+//   interleaving independent chains in the source, the 64-bit form (no carry
+//   flag) ran faster (PERF.md, §6).  The result (below 3p) goes into the
+//   lane's A row;
+//   (2) tensor cores: mma.sync m16n8k32 u8 x u8 -> s32 per warp, one output
+//   element (32 columns) at a time, A and B through ldmatrix; a partial
+//   round's zero 32 x 32 blocks (out_k for k > 0 reads only s_0 and s_k) are
+//   skipped; (3) the fragments go through shared memory to their lane's
+//   thread, which recombines the columns, reduces and subtracts p if needed.
+//   The state is canonical between rounds;
+// - mma.sync rather than wgmma: the product is 64 rows by 128 by 128 a round
+//   and the tensor cores are not the bound, so wgmma's asynchrony and
+//   descriptors buy nothing here, and mma.sync keeps each warp's rows its own;
+// - the 64 round matrices (16 KB each, 1 MB in all, L2-resident) are streamed
+//   with cp.async into two shared buffers: matrix r + 1 is copied while
+//   round r computes, and one __syncthreads a round hands a buffer over.
+//
+// What still holds it back (PERF.md, §6): a partial round's S-box is one
+// chain of three Montgomery products on one thread, and 56 of the 64 rounds
+// are partial; the s32 read-back goes through shared memory four times a
+// round.
+//
+// ptxas -v (sm_90a, nvcc 12.9, printed by chip_smoke.py on the H100): 116
+// registers, no spill stores or loads, 1 barrier; 55,296 bytes of dynamic
+// shared memory a block (SMEM below).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "bn254_mont.cuh"
 
-typedef unsigned long long u64;
+namespace {
 
 constexpr int WIDTH = 4;
 constexpr int HALF_FULL = 4;
 constexpr int PARTIAL = 56;
-
-// p = 21888242871839275222246405745257275088548364400416034343698204186575808495617
-__device__ __constant__ u64 kP[4] = {0x43e1f593f0000001ULL, 0x2833e84879b97091ULL,
-                                     0xb85045b68181585dULL, 0x30644e72e131a029ULL};
-// -p^-1 mod 2^64
-constexpr u64 kNInv = 0xc2e1f593efffffffULL;
+constexpr int ROUNDS = 2 * HALF_FULL + PARTIAL;  // one matrix each
 
 // Offsets (in field elements) into the constant buffer, in the order the
-// wrapper (kernels/poseidon_bn254.const_elements) lays them out.
+// wrapper (kernels/poseidon_bn254.const_elements) lays them out.  Kernel A
+// reads the round constants; the linear layers come from the matrices.
 constexpr int OFF_ARK0 = 0;                              // [4]
 constexpr int OFF_ARK_FIRST = OFF_ARK0 + WIDTH;          // [4][4]
 constexpr int OFF_ARK_SECOND = OFF_ARK_FIRST + 16;       // [4][4]
@@ -58,175 +93,226 @@ constexpr int OFF_S_ROW = OFF_PART_C + PARTIAL;          // [56][4]
 constexpr int OFF_S_COL = OFF_S_ROW + PARTIAL * 4;       // [56][3]
 constexpr int N_CONST = OFF_S_COL + PARTIAL * 3;
 
-struct Fe {
-  u64 w[4];
-};
+constexpr int ROW = WIDTH * 32;        // 128 bytes: a lane's state
+constexpr int STRIDE = ROW + 16;       // padded row, bytes
+constexpr int STRIDE_W = STRIDE / 4;   // padded row, 32-bit words
+constexpr int MAT = ROW * ROW;         // a round matrix, bytes
+constexpr int WARPS = 2;
+constexpr int TILE = 32 * WARPS;       // lanes (and threads) a block
+constexpr int LIMBS = WIDTH * 16;      // a lane's 16-bit limbs
 
-__device__ __forceinline__ Fe load_const(const u64* __restrict__ c, int idx) {
-  Fe r;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.w[k] = __ldg(c + 4 * idx + k);
-  return r;
+// Shared memory, bytes: two matrix buffers, the A tile, the warps' s32
+// read-back tiles (32 rows of 32 columns each, padded like A).
+constexpr int SM_B = 0;
+constexpr int SM_A = SM_B + 2 * ROW * STRIDE;
+constexpr int SM_C = SM_A + TILE * STRIDE;
+constexpr int SMEM = SM_C + WARPS * 32 * STRIDE;
+
+__device__ __forceinline__ u32 smem_addr(const void* p) {
+  return (u32)__cvta_generic_to_shared(p);
 }
 
-// a + b + carry_in over 64 bits; returns the sum, sets carry_out.
-__device__ __forceinline__ u64 addc(u64 a, u64 b, u64& carry) {
-  u64 s = a + b;
-  u64 c1 = s < a;
-  u64 s2 = s + carry;
-  u64 c2 = s2 < s;
-  carry = c1 | c2;
-  return s2;
-}
-
-// a - b - borrow_in; sets borrow_out.
-__device__ __forceinline__ u64 subb(u64 a, u64 b, u64& borrow) {
-  u64 d = a - b;
-  u64 b1 = a < b;
-  u64 d2 = d - borrow;
-  u64 b2 = d < borrow;
-  borrow = b1 | b2;
-  return d2;
-}
-
-// x < 2p -> x mod p
-__device__ __forceinline__ Fe cond_sub_p(const Fe& x) {
-  Fe d;
-  u64 borrow = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) d.w[k] = subb(x.w[k], kP[k], borrow);
-  return borrow ? x : d;
-}
-
-__device__ __forceinline__ Fe add_mod(const Fe& a, const Fe& b) {
-  Fe s;
-  u64 carry = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) s.w[k] = addc(a.w[k], b.w[k], carry);
-  // a + b < 2p < 2^255: no carry out of the top word
-  return cond_sub_p(s);
-}
-
-// Montgomery product a * b * 2^-256 mod p, canonical.  CIOS on 64-bit words.
-__device__ __forceinline__ Fe mont_mul(const Fe& a, const Fe& b) {
-  u64 t[6] = {0, 0, 0, 0, 0, 0};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    // t += a * b[i]
-    u64 c = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      u64 lo = a.w[j] * b.w[i];
-      u64 hi = __umul64hi(a.w[j], b.w[i]);
-      lo += c;
-      hi += lo < c;
-      lo += t[j];
-      hi += lo < t[j];
-      t[j] = lo;
-      c = hi;
-    }
-    t[4] += c;
-    t[5] = t[4] < c;
-    // t += m * p, then shift down one word (t[0] becomes 0)
-    u64 m = t[0] * kNInv;
-    u64 lo = m * kP[0];
-    u64 hi = __umul64hi(m, kP[0]);
-    lo += t[0];
-    hi += lo < t[0];
-    c = hi;
-#pragma unroll
-    for (int j = 1; j < 4; ++j) {
-      lo = m * kP[j];
-      hi = __umul64hi(m, kP[j]);
-      lo += c;
-      hi += lo < c;
-      lo += t[j];
-      hi += lo < t[j];
-      t[j - 1] = lo;
-      c = hi;
-    }
-    t[3] = t[4] + c;
-    t[4] = t[5] + (t[3] < c);
+__device__ __forceinline__ void prefetch_matrix(uint8_t* dst,
+                                                const uint8_t* __restrict__ mats,
+                                                int r) {
+  const uint8_t* src = mats + (size_t)r * MAT;
+  for (int q = threadIdx.x; q < ROW * ROW / 16; q += TILE) {
+    const int row = q >> 3, chunk = (q & 7) * 16;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 :: "r"(smem_addr(dst + row * STRIDE + chunk)),
+                    "l"(src + row * ROW + chunk) : "memory");
   }
-  // t < 2p < 2^256, so t[4] == 0
-  Fe r;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) r.w[k] = t[k];
-  return cond_sub_p(r);
+  asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-__device__ __forceinline__ Fe exp5(const Fe& x) {
-  Fe x2 = mont_mul(x, x);
-  Fe x4 = mont_mul(x2, x2);
-  return mont_mul(x4, x);
+__device__ __forceinline__ void ldmatrix_x4(u32 (&r)[4], const uint8_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)) : "memory");
 }
 
-// out_i = sum_j M[j][i] * s_j
-__device__ __forceinline__ void mix(Fe s[WIDTH], const u64* __restrict__ c, int off) {
-  Fe out[WIDTH];
+// d += a b on one 16 x 8 tile, K = 32 bytes.
+__device__ __forceinline__ void mma_u8(int (&d)[4], const u32 (&a)[4], u32 b0,
+                                       u32 b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ Fe load_const(const u32* __restrict__ c, int idx) {
+  const uint4* p = reinterpret_cast<const uint4*>(c + idx * NW);
+  const uint4 lo = __ldg(p), hi = __ldg(p + 1);
+  return Fe{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
+}
+
+// x^5 + ark for x < 2p: below 3p < 2^256, which is all the byte rows need.
+__device__ __forceinline__ Fe exp5_ark(const Fe& x, const Fe& ark) {
+  u32 t[ACC];
+  mont<true>(t, x, x);
+  const Fe x2 = low(t);
+  mont<true>(t, x2, x2);
+  const Fe x4 = low(t);
+  mont<true>(t, x4, x);  // below 2p
+  add_fold(t, ark);
+  return low(t);
+}
+
+__device__ __forceinline__ void store_row(uint8_t* row, const Fe (&s)[WIDTH]) {
+  uint4* p = reinterpret_cast<uint4*>(row);
 #pragma unroll
-  for (int i = 0; i < WIDTH; ++i) {
-    Fe acc = mont_mul(s[0], load_const(c, off + 0 * WIDTH + i));
-#pragma unroll
-    for (int j = 1; j < WIDTH; ++j)
-      acc = add_mod(acc, mont_mul(s[j], load_const(c, off + j * WIDTH + i)));
-    out[i] = acc;
+  for (int e = 0; e < WIDTH; ++e) {
+    p[2 * e] = make_uint4(s[e].w[0], s[e].w[1], s[e].w[2], s[e].w[3]);
+    p[2 * e + 1] = make_uint4(s[e].w[4], s[e].w[5], s[e].w[6], s[e].w[7]);
   }
-#pragma unroll
-  for (int i = 0; i < WIDTH; ++i) s[i] = out[i];
 }
 
-__global__ void __launch_bounds__(128)
+// Output element i of the round's linear layer for this thread's lane: the
+// warp's 32 A rows times the 32 matrix columns of element i on the tensor
+// cores, the s32 columns handed to their lane through the warp's C tile,
+// then recombined, reduced and made canonical.
+__device__ __forceinline__ Fe linear_out(const uint8_t* a_rows, const uint8_t* bt,
+                                         int* c_tile, int i, bool partial) {
+  const int lane = threadIdx.x & 31;
+  int acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0;
+
+  // ldmatrix: thread l addresses row (l & 7) of 8 x 16-byte matrix l >> 3.
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 16;
+  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 16;
+#pragma unroll
+  for (int kk = 0; kk < WIDTH; ++kk) {
+    // K step kk reads input element kk; a partial round's out_i (i > 0)
+    // reads only s_0 and s_i.
+    if (partial && i != 0 && kk != 0 && kk != i) continue;
+    u32 a[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      ldmatrix_x4(a[mt], a_rows + (mt * 16 + a_row) * STRIDE + kk * 32 + a_col);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      u32 b[4];  // b0, b1 of n tile 2 np, then of n tile 2 np + 1
+      ldmatrix_x4(b, bt + (i * 32 + np * 16 + b_row) * STRIDE + kk * 32 + b_col);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mma_u8(acc[mt][2 * np], a[mt], b[0], b[1]);
+        mma_u8(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+      }
+    }
+  }
+
+  // Fragment (row g, columns 2t, 2t+1) and (row g + 8, the same columns).
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      int* p = c_tile + (mt * 16 + g) * STRIDE_W + nt * 8 + t2;
+      *reinterpret_cast<int2*>(p) = make_int2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<int2*>(p + 8 * STRIDE_W) =
+          make_int2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  __syncwarp();
+  int4 col[NW];  // col[w] = byte columns 4w .. 4w + 3 of this lane
+  const int4* mine = reinterpret_cast<const int4*>(c_tile + lane * STRIDE_W);
+#pragma unroll
+  for (int w = 0; w < NW; ++w) col[w] = mine[w];
+  __syncwarp();
+
+  // sum_m col[m] 2^(8m) into 32-bit words: below 2^269, so t[8] < 2^13.
+  u32 t[ACC];
+  u64 c = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    c += (u64)(u32)col[w].x + ((u64)(u32)col[w].y << 8) +
+         ((u64)(u32)col[w].z << 16) + ((u64)(u32)col[w].w << 24);
+    t[w] = (u32)c;
+    c >>= 32;
+  }
+  t[NW] = (u32)c;
+  t[NW + 1] = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) reduce_step<true>(t);  // below p + 2^13
+  return cond_sub(t, fe_p());
+}
+
+__global__ void __launch_bounds__(TILE)
 poseidon_bn254_kernel(const long long* __restrict__ in, long long* __restrict__ out,
-                      const u64* __restrict__ c, int n) {
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  const long long* src = in + (size_t)lane * WIDTH * 16;
+                      const u32* __restrict__ c, const uint8_t* __restrict__ mats,
+                      int n) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint8_t* a_rows = smem + SM_A + warp * 32 * STRIDE;  // this warp's lanes
+  int* c_tile = reinterpret_cast<int*>(smem + SM_C + warp * 32 * STRIDE);
+  const long long first = (long long)blockIdx.x * TILE + warp * 32;
+
+  prefetch_matrix(smem + SM_B, mats, 0);
+
+  // The warp's 32 lanes, coalesced: two 16-bit limbs a 32-bit word, lane l's
+  // words into A row l; lanes past n read as 0 and are never stored.
+  const longlong2* src = reinterpret_cast<const longlong2*>(in + first * LIMBS);
+#pragma unroll 4
+  for (int l = 0; l < 32; ++l) {
+    u32 word = 0;
+    if (first + l < n) {
+      const longlong2 v = src[l * 32 + lane];
+      word = (u32)v.x | ((u32)v.y << 16);
+    }
+    reinterpret_cast<u32*>(a_rows + l * STRIDE)[lane] = word;
+  }
+  __syncwarp();
   Fe s[WIDTH];
+  {
+    u32 ark0_t[ACC];
+    const uint4* mine = reinterpret_cast<const uint4*>(a_rows + lane * STRIDE);
 #pragma unroll
-  for (int e = 0; e < WIDTH; ++e) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const long long* l = src + e * 16 + 4 * k;
-      s[e].w[k] = (u64)l[0] | ((u64)l[1] << 16) | ((u64)l[2] << 32) | ((u64)l[3] << 48);
+    for (int e = 0; e < WIDTH; ++e) {
+      const uint4 lo = mine[2 * e], hi = mine[2 * e + 1];
+      zero(ark0_t);
+      add_fold(ark0_t, Fe{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}});
+      add_fold(ark0_t, load_const(c, OFF_ARK0 + e));
+      s[e] = low(ark0_t);  // canonical + ark < 2p
     }
   }
 
+#pragma unroll 1
+  for (int r = 0; r < ROUNDS; ++r) {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();  // matrix r is in; the other buffer is free
+    if (r + 1 < ROUNDS) prefetch_matrix(smem + SM_B + ((r + 1) & 1) * ROW * STRIDE,
+                                        mats, r + 1);
+    const bool partial = r >= HALF_FULL && r < HALF_FULL + PARTIAL;
+    if (partial) {
+      s[0] = exp5_ark(s[0], load_const(c, OFF_PART_C + r - HALF_FULL));
+    } else {
+      const int off = r < HALF_FULL ? OFF_ARK_FIRST + r * WIDTH
+                                    : OFF_ARK_SECOND + (r - HALF_FULL - PARTIAL) * WIDTH;
 #pragma unroll
-  for (int e = 0; e < WIDTH; ++e) s[e] = add_mod(s[e], load_const(c, OFF_ARK0 + e));
-
-  for (int r = 0; r < HALF_FULL; ++r) {
+      for (int e = 0; e < WIDTH; ++e) s[e] = exp5_ark(s[e], load_const(c, off + e));
+    }
+    store_row(a_rows + lane * STRIDE, s);
+    __syncwarp();
+    const uint8_t* bt = smem + SM_B + (r & 1) * ROW * STRIDE;
 #pragma unroll
-    for (int e = 0; e < WIDTH; ++e)
-      s[e] = add_mod(exp5(s[e]), load_const(c, OFF_ARK_FIRST + r * WIDTH + e));
-    mix(s, c, r == HALF_FULL - 1 ? OFF_P : OFF_M);
+    for (int i = 0; i < WIDTH; ++i) s[i] = linear_out(a_rows, bt, c_tile, i, partial);
   }
 
-  for (int r = 0; r < PARTIAL; ++r) {
-    s[0] = add_mod(exp5(s[0]), load_const(c, OFF_PART_C + r));
-    Fe new0 = mont_mul(s[0], load_const(c, OFF_S_ROW + r * 4 + 0));
-#pragma unroll
-    for (int j = 1; j < WIDTH; ++j)
-      new0 = add_mod(new0, mont_mul(s[j], load_const(c, OFF_S_ROW + r * 4 + j)));
-#pragma unroll
-    for (int k = 1; k < WIDTH; ++k)
-      s[k] = add_mod(s[k], mont_mul(s[0], load_const(c, OFF_S_COL + r * 3 + k - 1)));
-    s[0] = new0;
-  }
-
-  for (int r = 0; r < HALF_FULL; ++r) {
-#pragma unroll
-    for (int e = 0; e < WIDTH; ++e)
-      s[e] = add_mod(exp5(s[e]), load_const(c, OFF_ARK_SECOND + r * WIDTH + e));
-    mix(s, c, OFF_M);
-  }
-
-  long long* dst = out + (size_t)lane * WIDTH * 16;
-#pragma unroll
-  for (int e = 0; e < WIDTH; ++e) {
-#pragma unroll
-    for (int k = 0; k < 16; ++k)
-      dst[e * 16 + k] = (long long)((s[e].w[k / 4] >> (16 * (k % 4))) & 0xFFFFULL);
+  // The warp's 32 lanes out through the A rows, coalesced.
+  __syncwarp();
+  store_row(a_rows + lane * STRIDE, s);
+  __syncwarp();
+  longlong2* dst = reinterpret_cast<longlong2*>(out + first * LIMBS);
+#pragma unroll 4
+  for (int l = 0; l < 32; ++l) {
+    if (first + l < n) {
+      const u32 word = reinterpret_cast<const u32*>(a_rows + l * STRIDE)[lane];
+      dst[l * 32 + lane] = make_longlong2(word & 0xFFFFu, word >> 16);
+    }
   }
 }
 
@@ -234,15 +320,19 @@ poseidon_bn254_kernel(const long long* __restrict__ in, long long* __restrict__ 
 
 extern "C" int p2t_poseidon_bn254_n_const() { return N_CONST; }
 
-// in, out: (n, 4, 16) int64 Montgomery 16-bit limbs, contiguous, on the device.
-// consts: N_CONST * 4 u64 words.  Returns cudaGetLastError() after the launch.
+// in, out: (n, 4, 16) int64 Montgomery 16-bit limbs, contiguous and 16-byte
+// aligned, on the device.  consts: N_CONST * 8 u32 words; mats: ROUNDS x
+// 128 x 128 u8 round matrices (kernels/poseidon_bn254.round_matrices).
+// Returns the first CUDA error, else 0.
 extern "C" int p2t_poseidon_bn254_permute(const void* in, void* out, const void* consts,
-                                          int n, void* stream) {
+                                          const void* mats, int n, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      poseidon_bn254_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
   if (n > 0) {
-    const int threads = 128;
-    const int blocks = (n + threads - 1) / threads;
-    poseidon_bn254_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const long long*)in, (long long*)out, (const u64*)consts, n);
+    poseidon_bn254_kernel<<<(n + TILE - 1) / TILE, TILE, SMEM, (cudaStream_t)stream>>>(
+        (const long long*)in, (long long*)out, (const u32*)consts,
+        (const uint8_t*)mats, n);
   }
   return (int)cudaGetLastError();
 }

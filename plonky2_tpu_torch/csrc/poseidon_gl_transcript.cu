@@ -3,29 +3,54 @@
 //
 // Replaces the Pallas TPU kernel plonky2_tpu/kernels/poseidon_gl_pallas.py
 // (run_transcript_kernel -> _kernel), which ran the same scan out of VMEM
-// with its linear layers as bf16 byte-matrix products on the MXU.
+// with its linear layers as bf16 byte-matrix products on the MXU.  Each of
+// the n_perms steps is a masked overwrite of rate slots 0..7 with the
+// pre-gathered absorb block, then a width-12 Poseidon-GL permutation (x^7
+// S-box, 4 + 4 full rounds with the small-entry MDS matrix, 22 fast partial
+// rounds with init_mat12, w_full and vs_full), then a store of the 12 state
+// words.  Every value stays canonical, so the states are bit-exact with the
+// torch plain version and _run_transcript_jnp.
 //
-// Design: one thread per proof lane.  The 12 x u64 sponge state lives in
-// registers; the thread runs the n_perms steps in order, each one
-//   1. a masked overwrite of rate slots 0..7 with the pre-gathered absorb
-//      block (absorb[p][j][lane], coalesced across lanes),
-//   2. a width-12 Poseidon-GL permutation (x^7 S-box, 4 + 4 full rounds with
-//      the small-entry circulant MDS, 22 fast partial rounds with init_mat12,
-//      w_full and vs_full),
-//   3. a store of the 12 state words (out[p][k][lane], coalesced).
-// Goldilocks products are a*b lo/hi via __umul64hi, reduced with
-// 2^64 = 2^32 - 1 and 2^96 = -1 (mod p); every value stays canonical so the
-// states are bit-exact with the torch plain version and _run_transcript_jnp.
+// What bounds it on the H100: latency.  The scan is a chain of dependent
+// steps and a batch has only B ~ 256 chains for 132 SMs, so no multiply
+// pipe is ever busy; the time is n_perms x D x L, with L the latency of one
+// dependent Goldilocks product and D the products on one permutation's
+// critical path:
+//   D = 8 x 4 (a full round: x^7 in 3, then the MDS row)
+//     + 1     (the initial matrix before the partial rounds)
+//     + 22 x 4 (a partial round: x^7 of s0 in 3, then s0 w_0)
+//     = 121.
 //
-// What bounds it on the H100: latency.  The scan is strictly sequential
-// (~125-130 permutations of ~30 rounds each) and a batch has at most a few
-// hundred lanes, so at most a few warps run on a card of 132 SMs; each step
-// is a dependent chain of 64-bit multiplies.  Speed is not this kernel's
-// goal yet.
+// What the design does about it:
+// - one proof a group of 16 threads; thread k < 12 holds state word k, so
+//   every S-box and every row of a linear layer runs in parallel.  A block
+//   is one warp (two proofs), so a batch of 256 spreads over 128 SMs;
+// - x^7 as x^2, then x^3 and x^4 together, then x^7: depth 3, not 4;
+// - full rounds: thread k computes MDS row k from the 12 words, fetched
+//   with __shfl_sync; products by the small entries are summed exactly in
+//   32-bit halves and reduced once;
+// - partial rounds: every thread of the group runs s0's S-box itself (the
+//   lanes execute in lock-step, so the copies cost nothing), so s0 needs no
+//   broadcast; the rest of d, sum_(k>0) s_k w[r][k], is summed by a
+//   shuffle-xor tree in the same loop body as the S-box, which it does not
+//   depend on, so the compiler interleaves the two; s_k += s0 vs[r][k]
+//   follows;
+// - the 946 constants (7.6 KB) are copied into shared memory when the block
+//   starts (the threads of a warp read different words, which __constant__
+//   memory would serialise); thread k keeps its MDS row in registers;
+// - step p + 1's absorb word and mask byte are loaded before step p's
+//   permutation and first read at step p + 1, so no load is waited for; each
+//   state word is stored as soon as the permutation ends;
+// - the round loops stay rolled: unrolled, the code ran slower on the card
+//   (PERF.md, §6).
 //
-// Next step: fuse the public-input hash (a few permutations of the same
-// kind, run as plain torch ops today) into this launch, and overlap the scan
-// with the host-side work of the next batch.
+// gl_mul_chain_kernel is a measurement aid, on no path: one thread squares a
+// value n times, each product waiting on the last, so chip_smoke.py can time
+// L on the card.
+//
+// ptxas -v (sm_90a, nvcc 12.9, printed by chip_smoke.py on the H100):
+// transcript_kernel 66 registers, no spill stores or loads, 7,568 bytes of
+// shared memory, 1 barrier; gl_mul_chain_kernel 8 registers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,6 +65,10 @@ constexpr int HALF_FULL = 4;
 constexpr int N_PARTIAL = 22;
 constexpr u64 P = 0xFFFFFFFF00000001ULL;
 constexpr u64 EPSILON = 0xFFFFFFFFULL;  // 2^64 mod p
+constexpr int GROUP = 16;               // threads a proof
+constexpr int THREADS = 32;             // a block: one warp, two proofs
+constexpr int PROOFS = THREADS / GROUP;
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
 
 // Offsets (in u64 words) into the constant buffer, in the order the wrapper
 // (kernels/poseidon_gl_transcript.py:_kernel_consts) lays them out.
@@ -78,107 +107,137 @@ __device__ __forceinline__ u64 gl_mul(u64 a, u64 b) {
   return reduce128(a * b, __umul64hi(a, b));
 }
 
+// x^7 in three dependent products
 __device__ __forceinline__ u64 sbox(u64 x) {
-  u64 x2 = gl_mul(x, x);
-  u64 x3 = gl_mul(x, x2);
-  u64 x6 = gl_mul(x3, x3);
-  return gl_mul(x, x6);
+  const u64 x2 = gl_mul(x, x);
+  const u64 x3 = gl_mul(x2, x);
+  const u64 x4 = gl_mul(x2, x2);
+  return gl_mul(x3, x4);
 }
 
-// Circulant MDS with small entries: split each element into 32-bit halves,
-// sum the halves' products exactly (< 2^42), then one 128-bit reduction.
-__device__ __forceinline__ void mds(u64 s[WIDTH], const u64* __restrict__ c) {
-  u64 out[WIDTH];
-#pragma unroll
-  for (int r = 0; r < WIDTH; ++r) {
-    u64 lo_sum = 0, hi_sum = 0;
-#pragma unroll
-    for (int k = 0; k < WIDTH; ++k) {
-      u64 a = __ldg(c + OFF_MDS + r * WIDTH + k);
-      lo_sum += a * (s[k] & EPSILON);
-      hi_sum += a * (s[k] >> 32);
-    }
-    u64 lo = lo_sum + (hi_sum << 32);
-    u64 hi = (hi_sum >> 32) + (lo < lo_sum);
-    out[r] = reduce128(lo, hi);
-  }
-#pragma unroll
-  for (int r = 0; r < WIDTH; ++r) s[r] = out[r];
+__device__ __forceinline__ u64 word(u64 x, int j) {
+  return __shfl_sync(FULL_MASK, x, j, GROUP);
 }
 
-__device__ void permute(u64 s[WIDTH], const u64* __restrict__ c) {
-  for (int r = 0; r < HALF_FULL; ++r) {
+// The sum of v over the 16 threads of the group, in every thread.
+__device__ __forceinline__ u64 group_sum(u64 v) {
 #pragma unroll
-    for (int k = 0; k < WIDTH; ++k)
-      s[k] = sbox(gl_add(s[k], __ldg(c + OFF_RC_FIRST + r * WIDTH + k)));
-    mds(s, c);
+  for (int off = GROUP / 2; off > 0; off /= 2)
+    v = gl_add(v, __shfl_xor_sync(FULL_MASK, v, off, GROUP));
+  return v;
+}
+
+// Full round's linear layer, row k: sum_j mds[k][j] x_j with small entries,
+// summed exactly in 32-bit halves (< 2^42 each) and reduced once.
+__device__ __forceinline__ u64 mds_row(u64 x, const unsigned (&mds)[WIDTH]) {
+  u64 lo_sum = 0, hi_sum = 0;
+#pragma unroll
+  for (int j = 0; j < WIDTH; ++j) {
+    const u64 xj = word(x, j);
+    lo_sum += (u64)mds[j] * (xj & EPSILON);
+    hi_sum += (u64)mds[j] * (xj >> 32);
   }
+  const u64 lo = lo_sum + (hi_sum << 32);
+  const u64 hi = (hi_sum >> 32) + (lo < lo_sum);
+  return reduce128(lo, hi);
+}
+
+// One permutation of the group's state; x is word k of the thread in
+// ``slot`` of its group (slots 12..15 carry a copy of word 11's arithmetic
+// that nothing reads).
+__device__ __forceinline__ u64 permute(u64 x, int slot, int k,
+                                       const u64* __restrict__ c,
+                                       const unsigned (&mds)[WIDTH]) {
+#pragma unroll 1
+  for (int r = 0; r < HALF_FULL; ++r)
+    x = mds_row(sbox(gl_add(x, c[OFF_RC_FIRST + r * WIDTH + k])), mds);
 
   // folded first constant layer + init matrix (row/col 0 is the identity)
-  u64 t[WIDTH];
+  {
+    const u64 t = gl_add(x, c[OFF_FIRST_CONST + k]);
+    u64 prod[WIDTH];
 #pragma unroll
-  for (int k = 0; k < WIDTH; ++k) t[k] = gl_add(s[k], __ldg(c + OFF_FIRST_CONST + k));
+    for (int j = 0; j < WIDTH; ++j) prod[j] = gl_mul(word(t, j), c[OFF_INIT + k * WIDTH + j]);
 #pragma unroll
-  for (int r = 0; r < WIDTH; ++r) {
-    u64 acc = 0;
+    for (int step = 1; step < WIDTH; step *= 2)
 #pragma unroll
-    for (int k = 0; k < WIDTH; ++k)
-      acc = gl_add(acc, gl_mul(t[k], __ldg(c + OFF_INIT + r * WIDTH + k)));
-    s[r] = acc;
+      for (int j = 0; j + step < WIDTH; j += 2 * step) prod[j] = gl_add(prod[j], prod[j + step]);
+    x = prod[0];
   }
 
+  // Partial rounds, s0 in every thread.  A round's rest = sum_(k>0) s_k
+  // w[r][k] needs only the state before the round, so it is summed in the
+  // same loop body as the round's S-box, which it does not wait for: the
+  // two chains interleave.
+  const bool rest_word = slot > 0 && slot < WIDTH;
+  u64 s0 = word(x, 0);
+#pragma unroll 1
   for (int r = 0; r < N_PARTIAL; ++r) {
-    u64 s0 = gl_add(sbox(s[0]), __ldg(c + OFF_PART_CONST + r));
-    s[0] = s0;
-    // d = MDS0TO0 * s0 + sum_i rest[i] * w_hat[i]
-    u64 d = 0;
-#pragma unroll
-    for (int k = 0; k < WIDTH; ++k)
-      d = gl_add(d, gl_mul(s[k], __ldg(c + OFF_W_FULL + r * WIDTH + k)));
-    // rest[i] += s0 * vs[i]
-#pragma unroll
-    for (int k = 1; k < WIDTH; ++k)
-      s[k] = gl_add(s[k], gl_mul(s0, __ldg(c + OFF_VS_FULL + r * WIDTH + k)));
-    s[0] = d;
+    const u64 term = gl_mul(x, c[OFF_W_FULL + r * WIDTH + k]);
+    const u64 rest = group_sum(rest_word ? term : 0);
+    const u64 s0n = gl_add(sbox(s0), c[OFF_PART_CONST + r]);
+    // s_k += s0 vs[r][k]; slot 0 takes d after the last round
+    x = gl_add(x, gl_mul(s0n, c[OFF_VS_FULL + r * WIDTH + k]));
+    s0 = gl_add(gl_mul(s0n, c[OFF_W_FULL + r * WIDTH]), rest);  // d
   }
+  if (slot == 0) x = s0;
 
-  for (int r = 0; r < HALF_FULL; ++r) {
-#pragma unroll
-    for (int k = 0; k < WIDTH; ++k)
-      s[k] = sbox(gl_add(s[k], __ldg(c + OFF_RC_SECOND + r * WIDTH + k)));
-    mds(s, c);
-  }
+#pragma unroll 1
+  for (int r = 0; r < HALF_FULL; ++r)
+    x = mds_row(sbox(gl_add(x, c[OFF_RC_SECOND + r * WIDTH + k])), mds);
+  return x;
 }
 
-__global__ void __launch_bounds__(64)
+__global__ void __launch_bounds__(THREADS)
 transcript_kernel(const long long* __restrict__ absorb_lo,
                   const long long* __restrict__ absorb_hi,
                   const unsigned char* __restrict__ mask,
-                  const u64* __restrict__ c,
+                  const u64* __restrict__ consts,
                   long long* __restrict__ out_lo, long long* __restrict__ out_hi,
                   int n_perms, int batch) {
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= batch) return;
-  u64 s[WIDTH];
-#pragma unroll
-  for (int k = 0; k < WIDTH; ++k) s[k] = 0;
+  __shared__ u64 c[N_CONST];
+  for (int q = threadIdx.x; q < N_CONST; q += THREADS) c[q] = consts[q];
+  __syncthreads();
 
+  const int slot = threadIdx.x % GROUP;
+  const int k = slot < WIDTH ? slot : WIDTH - 1;
+  const int lane = blockIdx.x * PROOFS + threadIdx.x / GROUP;
+  const bool live = lane < batch;
+  const bool stores = live && slot < WIDTH;
+  const bool absorbs = live && slot < RATE;
+  unsigned mds[WIDTH];
+#pragma unroll
+  for (int j = 0; j < WIDTH; ++j) mds[j] = (unsigned)c[OFF_MDS + k * WIDTH + j];
+
+  // Step p's absorb word and mask byte, loaded a step ahead and first read at
+  // step p, so no load is waited for before a permutation.
+  long long next_lo = 0, next_hi = 0;
+  unsigned char take = 0;
+  auto absorb = [&](int p) {
+    if (!absorbs) return;
+    const size_t i = ((size_t)p * RATE + slot) * batch + lane;
+    next_lo = absorb_lo[i];
+    next_hi = absorb_hi[i];
+    take = mask[p * RATE + slot];
+  };
+  absorb(0);
+  u64 x = 0;
   for (int p = 0; p < n_perms; ++p) {
-#pragma unroll
-    for (int j = 0; j < RATE; ++j) {
-      if (mask[p * RATE + j]) {
-        size_t i = ((size_t)p * RATE + j) * batch + lane;
-        s[j] = (u64)absorb_lo[i] | ((u64)absorb_hi[i] << 32);
-      }
-    }
-    permute(s, c);
-#pragma unroll
-    for (int k = 0; k < WIDTH; ++k) {
-      size_t i = ((size_t)p * WIDTH + k) * batch + lane;
-      out_lo[i] = (long long)(s[k] & EPSILON);
-      out_hi[i] = (long long)(s[k] >> 32);
+    if (take) x = (u64)next_lo | ((u64)next_hi << 32);
+    take = 0;
+    if (p + 1 < n_perms) absorb(p + 1);
+    x = permute(x, slot, k, c, mds);
+    if (stores) {
+      const size_t i = ((size_t)p * WIDTH + slot) * batch + lane;
+      out_lo[i] = (long long)(x & EPSILON);
+      out_hi[i] = (long long)(x >> 32);
     }
   }
+}
+
+__global__ void gl_mul_chain_kernel(u64* out, u64 x, int n) {
+  for (int i = 0; i < n; ++i) x = gl_mul(x, x);
+  *out = x;
 }
 
 }  // namespace
@@ -192,12 +251,18 @@ extern "C" int p2t_transcript(const void* absorb_lo, const void* absorb_hi,
                               const void* mask, const void* consts, void* out_lo,
                               void* out_hi, int n_perms, int batch, void* stream) {
   if (n_perms > 0 && batch > 0) {
-    const int threads = 64;
-    const int blocks = (batch + threads - 1) / threads;
-    transcript_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    const int blocks = (batch + PROOFS - 1) / PROOFS;
+    transcript_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
         (const long long*)absorb_lo, (const long long*)absorb_hi,
         (const unsigned char*)mask, (const u64*)consts, (long long*)out_lo,
         (long long*)out_hi, n_perms, batch);
   }
+  return (int)cudaGetLastError();
+}
+
+// out: one u64 on the device, x0 squared n times in Goldilocks by one thread.
+// Returns cudaGetLastError() after the launch.
+extern "C" int p2t_gl_mul_chain(void* out, unsigned long long x0, int n, void* stream) {
+  gl_mul_chain_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((u64*)out, x0, n);
   return (int)cudaGetLastError();
 }

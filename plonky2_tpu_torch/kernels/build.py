@@ -5,7 +5,9 @@ The sources have a plain C interface.  At first use ``nvcc`` compiles every
 together, and links the objects into one shared library,
 ``build/plonky2_tpu_torch/libp2t_kernels.so`` at the repository root, which
 ``ctypes`` loads.  The library is rebuilt whenever the hash of the sources
-and flags changes.  Nothing here runs at import time.
+(headers included) and flags changes.  ``ptxas``'s report of each kernel's
+registers, shared memory and spills is kept beside it (``ptxas_log``).
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -23,18 +25,21 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "plonky2_tpu_torch"
 LIB_NAME = "libp2t_kernels.so"
+PTXAS_LOG = BUILD_DIR / "ptxas.log"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U64 = ctypes.c_uint64
 _SIGNATURES = {
     "p2t_poseidon_bn254_n_const": [],
-    "p2t_poseidon_bn254_permute": [_P, _P, _P, _I, _P],
+    "p2t_poseidon_bn254_permute": [_P, _P, _P, _P, _I, _P],
     "p2t_poseidon_bn254_cios_n_const": [],
     "p2t_poseidon_bn254_cios_permute": [_P, _P, _P, _I, _P],
     "p2t_transcript_n_const": [],
     "p2t_transcript": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "p2t_gl_mul_chain": [_P, _U64, _I, _P],
 }
 
 
@@ -65,7 +70,7 @@ def _sources():
 
 def _digest(sources):
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sources + sorted(CSRC.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()
@@ -91,12 +96,14 @@ def build(force=False):
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True)
              for s, o in zip(sources, objs)]
+    reports = []
     try:
         for s, proc in zip(sources, procs):
             _, err = proc.communicate()
             if proc.returncode != 0:
                 raise KernelError(f"nvcc failed on {s.name} "
                                   f"({proc.returncode}):\n{err}")
+            reports.append(f"== {s.name}\n{err}")
         link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                               capture_output=True, text=True)
         if link.returncode != 0:
@@ -111,8 +118,15 @@ def build(force=False):
             o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
     os.replace(tmp, lib)
+    PTXAS_LOG.write_text("".join(reports))
     stamp.write_text(digest)
     return lib, seconds
+
+
+def ptxas_log():
+    """``ptxas -v``'s lines of the last build: per kernel, registers, shared
+    memory and spill stores/loads."""
+    return PTXAS_LOG.read_text() if PTXAS_LOG.exists() else ""
 
 
 @functools.lru_cache(maxsize=1)

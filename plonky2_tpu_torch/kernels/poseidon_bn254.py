@@ -1,13 +1,12 @@
 """Poseidon-BN254 permutation: wrapper of the CUDA kernel
-``csrc/poseidon_bn254.cu`` and its plain torch version.
+``csrc/poseidon_bn254.cu`` (kernel A) and its plain torch version.
 
 Replaces the Pallas TPU kernel ``plonky2_tpu/kernels/poseidon_bn254_mxu.py``
-(``permute`` -> ``_kernel``).  The kernel runs one thread per permutation
-lane with the state in registers and CIOS Montgomery products on 64-bit
-words; on the H100 it is bound by 64-bit integer multiply throughput (see
-the source's header).  Next steps: the linear layers as int8 tensor-core
-products; then a CUDA graph or a fused launch for the per-step and per-level
-loops of ``fri/verify.py`` (reference ``plonky2_tpu/fri/verify.py:52-102``).
+(``permute`` -> ``_kernel``).  As there, each round's linear layer is one
+exact byte-matrix product, here on the int8 tensor cores: a lane's state as
+128 bytes times the round's 128 x 128 byte matrix (``round_matrices``), then
+one Montgomery reduction per element; the S-boxes and reductions run on the
+CUDA cores, which bound it (see the source's header).
 
 ``permute`` launches the kernel for a CUDA tensor and raises if it cannot;
 it takes the plain version (``permute_plain``) only for a CPU tensor.
@@ -21,10 +20,14 @@ import functools
 import numpy as np
 import torch
 
+from ..fields import bn254
 from ..hash import poseidon_bn254 as pb
+from ..hash import poseidon_bn254_constants as K
 from . import build
 
 permute_plain = pb.permute_plain
+
+ROUND_BYTES = pb.WIDTH * 32  # a state as little-endian bytes
 
 
 def const_elements():
@@ -41,27 +44,65 @@ def const_elements():
     return np.concatenate([np.asarray(p).reshape(-1, 16) for p in parts])
 
 
-def pack_words(limbs, bits, n_const):
-    """(N, 16) 16-bit limbs -> int64 tensor of the little-endian ``bits``-bit
-    words, checked against the kernel's constant count ``n_const``."""
+def const_words(n_const):
+    """``const_elements()`` as little-endian u32 words (an int32 array of
+    8 a field element), checked against the kernel's count ``n_const``."""
+    limbs = const_elements()
     if limbs.shape[0] != n_const:
         raise build.KernelError(
             f"constant buffer has {limbs.shape[0]} elements, kernel wants {n_const}")
-    per = bits // 16
-    limbs = np.asarray(limbs, dtype=np.uint64).reshape(-1, 16 // per, per)
-    words = np.zeros(limbs.shape[:-1], np.uint64)
-    for k in range(per):
-        words |= limbs[..., k] << np.uint64(16 * k)
-    return words.reshape(-1)
+    limbs = limbs.astype(np.uint32)
+    return (limbs[:, 0::2] | (limbs[:, 1::2] << np.uint32(16))).reshape(-1).view(np.int32)
+
+
+def _byte_matrix(coeffs):
+    """coeffs[j][i] (Montgomery-form ints) of out_i = sum_j c_(j,i) s_j ->
+    (128, 128) uint8 with [i*32 + m][j*32 + k] = byte m of c_(j,i) 2^(8k) mod p."""
+    out = np.zeros((pb.WIDTH, 32, pb.WIDTH, 32), np.uint8)
+    for j in range(pb.WIDTH):
+        for i in range(pb.WIDTH):
+            c = int(coeffs[j][i])
+            if c == 0:
+                continue
+            for k in range(32):
+                v = (c << (8 * k)) % bn254.P
+                out[i, :, j, k] = np.frombuffer(v.to_bytes(32, "little"), np.uint8)
+    return out.reshape(ROUND_BYTES, ROUND_BYTES)
+
+
+@functools.lru_cache(maxsize=1)
+def round_matrices():
+    """Kernel A's 64 round matrices, (64, 128, 128) uint8, in round order:
+    4 full rounds (M, M, M, P), 56 partial rounds (each one's sparse map,
+    identity terms mont(1) = R mod p), 4 full rounds (M).  Row = output byte,
+    column = input byte, so a lane's bytes times row n sum to output column n
+    (the tensor cores' col-major B operand)."""
+    C_m, C_p, S = K.M_MATRIX_MONT, K.P_MATRIX_MONT, K.S_CONSTANTS_MONT
+    m_mat, p_mat = _byte_matrix(C_m), _byte_matrix(C_p)
+    w = pb.WIDTH
+    partial = []
+    for r in range(pb.PARTIAL_ROUNDS):
+        row = S[(2 * w - 1) * r:(2 * w - 1) * r + w]           # c_(j,0)
+        col = S[(2 * w - 1) * r + w:(2 * w - 1) * (r + 1)]     # c_(0,k), k > 0
+        a = [[0] * w for _ in range(w)]
+        for j in range(w):
+            a[j][0] = row[j]
+        for k in range(1, w):
+            a[0][k] = col[k - 1]
+            a[k][k] = bn254.R_MOD_P
+        partial.append(_byte_matrix(a))
+    half = pb.FULL_ROUNDS // 2
+    mats = np.stack([m_mat] * (half - 1) + [p_mat] + partial + [m_mat] * half)
+    mats.setflags(write=False)
+    return mats
 
 
 @functools.lru_cache(maxsize=4)
-def _kernel_consts(device):
-    """Constant buffer of the kernel: 4 little-endian u64 words a field
-    element."""
-    words = pack_words(const_elements(), 64,
-                       build.library().p2t_poseidon_bn254_n_const())
-    return torch.from_numpy(words.view(np.int64).copy()).to(device)
+def _kernel_tables(device):
+    """(constant words, round matrices) of kernel A on ``device``."""
+    words = const_words(build.library().p2t_poseidon_bn254_n_const())
+    return (torch.from_numpy(words.copy()).to(device),
+            torch.from_numpy(round_matrices().copy()).to(device))
 
 
 def check_state(state, what):
@@ -79,11 +120,13 @@ def permute(state):
         return permute_plain(state)
     check_state(state, "Poseidon-BN254")
     src = state.contiguous()
+    if src.data_ptr() % 16:  # the kernel reads two limbs at a time
+        src = src.clone()
     out = torch.empty_like(src)
-    consts = _kernel_consts(src.device)
+    consts, mats = _kernel_tables(src.device)
     rc = build.library().p2t_poseidon_bn254_permute(
-        src.data_ptr(), out.data_ptr(), consts.data_ptr(), src.numel() // 64,
-        build.stream_handle(src.device))
+        src.data_ptr(), out.data_ptr(), consts.data_ptr(), mats.data_ptr(),
+        src.numel() // 64, build.stream_handle(src.device))
     build.check(rc, "poseidon_bn254 launch")
     permute.launches += 1
     return out

@@ -19,12 +19,11 @@ from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
 
 from ..hash import poseidon_bn254 as pb
 from . import build
-from .poseidon_bn254 import check_state, const_elements, pack_words
+from .poseidon_bn254 import check_state, const_words
 
 permute_plain = pb.permute_plain
 
@@ -33,9 +32,8 @@ permute_plain = pb.permute_plain
 def _kernel_consts(device):
     """Constant buffer of the kernel: 8 little-endian u32 words a field
     element, in the kernel's OFF_* order."""
-    words = pack_words(const_elements(), 32,
-                       build.library().p2t_poseidon_bn254_cios_n_const())
-    return torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(device)
+    words = const_words(build.library().p2t_poseidon_bn254_cios_n_const())
+    return torch.from_numpy(words.copy()).to(device)
 
 
 def permute(state):

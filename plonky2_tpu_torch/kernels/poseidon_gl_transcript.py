@@ -3,12 +3,11 @@
 
 Replaces the Pallas TPU kernel ``plonky2_tpu/kernels/poseidon_gl_pallas.py``
 (``run_transcript_kernel`` -> ``_kernel``).  One launch runs the whole duplex
-sponge of a batch: one thread per proof lane, the 12-word state in registers,
-the n_perms permutations in order.  On the H100 it is latency-bound by
-nature (at most a few hundred lanes on 132 SMs).  Next step: fold the
-public-input hash (``hash/poseidon_gl.hash_no_pad``, a few permutations run
-as plain torch ops today) into the same launch, and overlap the launch with
-the host work of the next batch.
+sponge of a batch: one proof a group of 16 threads, thread k holding state
+word k, the n_perms permutations in order.  On the H100 it is latency-bound
+by nature (a chain of dependent products per proof, a few hundred proofs on
+132 SMs; see the source's header).  ``mul_chain`` times one dependent
+Goldilocks product for that bound; it is on no path.
 
 As on the TPU, the absorb blocks are gathered outside the kernel into
 ``(n_perms, 8, B)``, after the public-input hash lanes are written into the
@@ -43,11 +42,26 @@ def _with_pi_hash(schedule, obs, pi_hash):
     return lo, hi
 
 
+def schedule_tables(schedule, device):
+    """The schedule's gather index (flat int64) and mask ((n_perms, 8)
+    uint8) on ``device``, copied once per schedule and device: a copy from
+    host memory waits for the device, so it stays off the per-batch path."""
+    return _schedule_tables(schedule.gather_idx.astype(np.int64).tobytes(),
+                            schedule.mask.astype(np.uint8).tobytes(),
+                            torch.device(device))
+
+
+@functools.lru_cache(maxsize=8)
+def _schedule_tables(gather, mask, device):
+    return (torch.frombuffer(bytearray(gather), dtype=torch.int64).to(device),
+            torch.frombuffer(bytearray(mask), dtype=torch.uint8)
+            .reshape(-1, RATE).to(device))
+
+
 def gather_absorb(schedule, obs, pi_hash):
     """Absorb blocks (n_perms, 8, B) as a GL pair, pi-hash lanes included."""
     lo, hi = _with_pi_hash(schedule, obs, pi_hash)
-    g = torch.as_tensor(schedule.gather_idx.reshape(-1).astype(np.int64),
-                        device=lo.device)
+    g, _ = schedule_tables(schedule, lo.device)
     B = lo.shape[0]
 
     def blocks(x):
@@ -59,7 +73,7 @@ def gather_absorb(schedule, obs, pi_hash):
 def run_transcript_plain(schedule, obs, pi_hash):
     """Torch scan, the same function as the kernel (and _run_transcript_jnp)."""
     absorb = gather_absorb(schedule, obs, pi_hash)
-    mask = torch.as_tensor(schedule.mask, device=obs[0].device)  # (n_perms, 8)
+    mask = schedule_tables(schedule, obs[0].device)[1].bool()  # (n_perms, 8)
     B = obs[0].shape[0]
     state = gl.zeros((B, WIDTH), obs[0].device)
     out_lo, out_hi = [], []
@@ -102,7 +116,7 @@ def run_transcript_kernel(schedule, obs, pi_hash):
         if t.dtype != torch.int64 or t.device != device:
             raise ValueError("obs and pi_hash must be int64 on one CUDA device")
     absorb_lo, absorb_hi = gather_absorb(schedule, obs, pi_hash)
-    mask = torch.as_tensor(schedule.mask.astype(np.uint8), device=device)
+    _, mask = schedule_tables(schedule, device)
     n_perms, B = schedule.n_perms, obs[0].shape[0]
     out_lo = torch.empty((n_perms, WIDTH, B), dtype=torch.int64, device=device)
     out_hi = torch.empty_like(out_lo)
@@ -114,6 +128,17 @@ def run_transcript_kernel(schedule, obs, pi_hash):
     build.check(rc, "transcript launch")
     run_transcript_kernel.launches += 1
     return out_lo.transpose(1, 2), out_hi.transpose(1, 2)
+
+
+def mul_chain(x0, n, device):
+    """Measurement aid: ``x0`` squared ``n`` times in Goldilocks by one GPU
+    thread, each product waiting on the last; returns the (1,) int64 result
+    tensor (the u64's bits) without synchronising."""
+    out = torch.empty((1,), dtype=torch.int64, device=device)
+    rc = build.library().p2t_gl_mul_chain(out.data_ptr(), x0, n,
+                                           build.stream_handle(device))
+    build.check(rc, "gl_mul_chain launch")
+    return out
 
 
 def run_transcript(schedule, obs, pi_hash):

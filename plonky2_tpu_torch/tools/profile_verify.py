@@ -34,14 +34,15 @@ from ..utils.profiling import StageTimer
 
 def profile_stages(spec, batch, device):
     """Seconds per stage of one verification of ``batch``, plus ``total``
-    and the verdicts (a (B,) bool numpy array) under ``verdicts``."""
+    and the verdicts (a (B,) bool numpy array, quarantined lanes False as in
+    ``verifier.verify_batch``) under ``verdicts``."""
     device = verifier.resolve_device(device)
     timer = StageTimer(device)
     with timer.stage("prepare"):
         schedule, dev, obs = verifier.prepare(spec, batch, device)
     verdict = verifier.verify_device(spec, schedule, dev, obs, timer=timer)
     with timer.stage("verdict"):
-        verdicts = verdict.cpu().numpy()
+        verdicts = verifier.apply_valid_masks(verdict.cpu().numpy(), batch)
     out = dict(timer.timings)
     out["total"] = sum(out.values())
     out["verdicts"] = verdicts

@@ -112,6 +112,16 @@ def prepare(spec, proof_batch, device):
     return schedule, proof_to_device(proof_batch, device), obs
 
 
+def apply_valid_masks(verdict, proof_batch, valid_mask=None):
+    """(B,) bool numpy verdicts with every quarantined lane False: the mask
+    that ``serde.ingest_batch`` stores in the batch and, when given, the
+    caller's ``valid_mask`` ((B,) bool)."""
+    for mask in (proof_batch.get(VALID_MASK), valid_mask):
+        if mask is not None:
+            verdict = verdict & np.asarray(mask, dtype=bool)
+    return verdict
+
+
 def verify_batch(spec, proof_batch, valid_mask=None, device="cuda",
                  diagnostics=False):
     """Verify a batched serde dict (leading axis B).  Returns (B,) bool.
@@ -125,9 +135,7 @@ def verify_batch(spec, proof_batch, valid_mask=None, device="cuda",
     schedule, dev, obs = prepare(spec, proof_batch, device)
     out = verify_device(spec, schedule, dev, obs, diagnostics=True)
     out = {k: v.cpu().numpy() for k, v in out.items()}
-    for mask in (proof_batch.get(VALID_MASK), valid_mask):
-        if mask is not None:
-            out["verdict"] = out["verdict"] & np.asarray(mask, dtype=bool)
+    out["verdict"] = apply_valid_masks(out["verdict"], proof_batch, valid_mask)
     return out if diagnostics else out["verdict"]
 
 

@@ -42,7 +42,10 @@ def _bn_states(shape, seed):
     return torch.as_tensor(vals)
 
 
-@pytest.mark.parametrize("shape", [(1,), (3, 2), (1000,)])
+# Kernel A's blocks own 64 lanes: lane counts off that tile, and its largest
+# launch on the main path plus one.
+@pytest.mark.parametrize("shape", [(1,), (63,), (65,), (3, 2), (1000,),
+                                   (28673,)])
 def test_poseidon_bn254_kernel_matches_plain(dev, shape):
     st = _bn_states(shape, seed=len(shape) * 1000 + shape[0]).to(dev)
     before = kb.permute.launches
@@ -92,18 +95,29 @@ def test_permute_selects_the_kernel_by_env(dev, monkeypatch):
     assert torch.equal(got_c, got_a)
 
 
-def test_transcript_kernel_matches_plain(dev):
-    spec = load_circuit_spec("testdata/decode_block/common_circuit_data.json")
+# Two proofs a block of the transcript kernel: odd batches leave a half
+# block; 256 is the main path's batch.
+@pytest.mark.parametrize("fixture", ["step", "decode_block"])
+@pytest.mark.parametrize("batch", [1, 3, 17, 256, 257])
+def test_transcript_kernel_matches_plain(dev, fixture, batch):
+    spec = load_circuit_spec(f"testdata/{fixture}/common_circuit_data.json")
     schedule = chal.build_schedule(spec)
-    rng = np.random.default_rng(3)
-    obs = rng.integers(0, gl.P, size=(3, schedule.n_obs), dtype=np.uint64)
+    rng = np.random.default_rng(3 + batch)
+    obs = rng.integers(0, gl.P, size=(batch, schedule.n_obs), dtype=np.uint64)
     obs[0, :3] = [0, 1, gl.P - 1]
-    pi = rng.integers(0, gl.P, size=(3, 4), dtype=np.uint64)
+    pi = rng.integers(0, gl.P, size=(batch, 4), dtype=np.uint64)
     obs, pi = gl.split_u64(obs, dev), gl.split_u64(pi, dev)
     before = kt.run_transcript_kernel.launches
     got = chal.run_transcript(schedule, obs, pi)
     assert kt.run_transcript_kernel.launches == before + 1
     want = kt.run_transcript_plain(schedule, obs, pi)
     torch.cuda.synchronize()
-    assert got[0].shape == (schedule.n_perms, 3, 12)
+    assert got[0].shape == (schedule.n_perms, batch, 12)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_gl_mul_chain_squares_in_goldilocks(dev):
+    """The latency probe computes what it claims: x0^(2^n) mod p."""
+    n = 1000
+    got = int(kt.mul_chain(3, n, dev).item()) % (1 << 64)
+    assert got == pow(3, pow(2, n, gl.P - 1), gl.P)
