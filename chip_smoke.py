@@ -74,24 +74,32 @@ DECODE_EXPECTED = [True, False, False, False]
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 SMS, IMAD_PER_SM_CLOCK = 132, 64
-# A Poseidon-BN254 permutation, in the least costly of its two known forms:
-# the CIOS form is 784 256-bit products and 520 Montgomery reductions, each
-# 8 x 8 32-bit words, lo and hi (128 IMADs); the tensor-core form keeps 264
-# S-box products and 520 reductions on the IMADs and puts the 64 rounds'
-# linear layers on the int8 tensor cores, 128 x 128 byte products each
-# (2 operations a product).
-BN254_CIOS_IMADS = (784 + 520) * 128
-BN254_TC_IMADS = (264 + 520) * 128
+# A Poseidon-BN254 permutation, in the least costly of its two known forms.
+# A general 256-bit product and a Montgomery reduction are 8 x 8 32-bit word
+# products, lo and hi (128 IMADs); a squaring is 36 word products (72 IMADs).
+# Of the 88 S-boxes' 264 products, 176 are the squarings x^2 and x^4. The
+# CIOS form adds 520 linear-layer products by constants and reduces 520
+# times; the tensor-core form keeps the S-boxes and 520 reductions on the
+# IMADs and puts the 64 rounds' linear layers on the int8 tensor cores,
+# 128 x 128 byte products each (2 operations a product).
+BN254_SBOX_IMADS = 88 * 128 + 176 * 72
+BN254_CIOS_IMADS = BN254_SBOX_IMADS + (520 + 520) * 128
+BN254_TC_IMADS = BN254_SBOX_IMADS + 520 * 128
 BN254_TC_INT8_OPS = 64 * 128 * 128 * 2
-# A Poseidon-GL permutation: 1099 Goldilocks products (8 full rounds of 12
-# x^7 S-boxes at 4 products, 22 partial S-boxes, the 11 x 11 initial matrix,
-# 22 sparse partial-round layers of 23) at 2 x 2 x 2 IMADs, and 8 x 144
-# products by the MDS matrix's small entries at 2 x 2.
-GL_PERM_IMADS = (4 * (8 * 12 + 22) + 11 * 11 + 22 * 23) * 8 + 8 * 144 * 4
-# Dependent Goldilocks products on one permutation's critical path (counted
-# in csrc/poseidon_gl_transcript.cu): 8 full rounds of 4, the initial
-# matrix, 22 partial rounds of 4.
-GL_PERM_DEPTH = 8 * 4 + 1 + 22 * 4
+# A Poseidon-GL permutation: 118 x^7 S-boxes (8 full rounds of 12, 22
+# partial) of 2 products and 2 squarings, the 11 x 11 initial matrix and
+# 22 sparse partial-round layers of 23 products; a product of 2 x 2 32-bit
+# words, lo and hi, is 8 IMADs, a squaring 6; and 8 x 144 products by the
+# MDS matrix's small entries at 2 x 2.
+GL_PERM_IMADS = ((8 * 12 + 22) * (2 * 8 + 2 * 6) + (11 * 11 + 22 * 23) * 8
+                 + 8 * 144 * 4)
+# Dependent Goldilocks products on the shortest critical path of one
+# permutation (counted in csrc/poseidon_gl_transcript.cu): a full round is
+# 4 (x^7 in 3, then the MDS row); row 0 of the initial matrix is the
+# identity; a partial round is 3 (x^7 w0 as x^4 (x^3 w0), with x w0 beside
+# x^2 and x^3 w0 beside x^4; pc w0 is a constant, and the rest sum needs
+# only depth 2 from the round's input).
+GL_PERM_DEPTH = 8 * 4 + 22 * 3
 NO_LIBRARY = None  # no PyTorch call computes a Poseidon permutation
 BN_LANES_RISKY = [1, 63, 65, 1000, 28673]  # off kernel A's 64-lane tile
 TRANSCRIPT_BATCHES = [1, 3, 17, STEP_BATCH, STEP_BATCH + 1]
@@ -158,6 +166,18 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def timed_once(fn):
+    """(fn(), its device time in ms): one call, no warm-up."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 @contextlib.contextmanager
 def pb_impl(name):
     """Run the block with PLONKY2_TPU_PB_IMPL set to ``name``."""
@@ -221,13 +241,19 @@ def transcript_inputs(dev, rng, schedule, batch):
 def check_transcript_kernel(dev, rng, specs):
     """The transcript kernel bit-exact against the plain scan at each batch
     of TRANSCRIPT_BATCHES on each spec's schedule (the first lanes of one
-    input, whose lanes are independent, so one plain scan covers them all);
-    times at B=STEP_BATCH on the first (step) schedule."""
+    input, whose lanes are independent, so one plain scan covers them all).
+    On the first (step) schedule, the time of that one plain scan (bound by
+    host launches, so its batch barely matters) and the kernel's time at
+    B=STEP_BATCH on the first lanes of the same input."""
     err = 0
     for spec in specs:
         schedule = chal.build_schedule(spec)
         obs, pi = transcript_inputs(dev, rng, schedule, max(TRANSCRIPT_BATCHES))
-        want = kt.run_transcript_plain(schedule, obs, pi)
+        want, ms = timed_once(lambda: kt.run_transcript_plain(schedule, obs, pi))
+        if spec is specs[0]:
+            plain_ms = ms
+            timed = (schedule, tuple(t[:STEP_BATCH] for t in obs),
+                     tuple(t[:STEP_BATCH] for t in pi))
         for batch in TRANSCRIPT_BATCHES:
             got = kt.run_transcript_kernel(
                 schedule, tuple(t[:batch] for t in obs),
@@ -239,10 +265,8 @@ def check_transcript_kernel(dev, rng, specs):
                     raise AssertionError(
                         f"transcript kernel differs from the plain scan at "
                         f"B={batch}, {schedule.n_perms} permutations")
-    schedule = chal.build_schedule(specs[0])
-    obs, pi = transcript_inputs(dev, rng, schedule, STEP_BATCH)
+    schedule, obs, pi = timed
     ms = cuda_ms(lambda: kt.run_transcript_kernel(schedule, obs, pi), 20)
-    plain_ms = cuda_ms(lambda: kt.run_transcript_plain(schedule, obs, pi), 1)
     # bytes at the wrapper: obs and pi in, the states out, each a GL pair
     nbytes = 2 * 8 * STEP_BATCH * (schedule.n_obs + 4 + schedule.n_perms * 12)
     return err, ms, plain_ms, schedule.n_perms, nbytes
@@ -310,9 +334,6 @@ def main_path(impl, dev, spec_step, batch_step, expected, spec_db, batch_db,
         raise AssertionError(f"{impl}: decode_block verdicts {got_db}")
     used = "poseidon_bn254_cios" if impl == "cios" else "poseidon_bn254"
     unused = "poseidon_bn254" if impl == "cios" else "poseidon_bn254_cios"
-    for name in (used, "poseidon_gl_transcript"):
-        if launches[name] <= 0:
-            raise AssertionError(f"{impl}: {name} kernel not launched")
     got = (launches[used], launches["poseidon_gl_transcript"])
     if got != (EXPECTED_BN254_LAUNCHES, EXPECTED_TRANSCRIPT_LAUNCHES):
         raise AssertionError(f"{impl}: launches {launches}, expected "
@@ -402,8 +423,9 @@ def main():
         dev, rng, [spec_step, spec_db_only])
     print(f"transcript: bit-exact at B={TRANSCRIPT_BATCHES} on the step and "
           f"decode_block schedules; step schedule ({n_perms} permutations) "
-          f"at B={STEP_BATCH}: kernel {tr_ms:.4f} ms, plain "
-          f"{tr_plain_ms:.2f} ms [{card}]")
+          f"at B={STEP_BATCH}: kernel {tr_ms:.4f} ms; plain "
+          f"{tr_plain_ms:.2f} ms at B={max(TRANSCRIPT_BATCHES)}, one call "
+          f"[{card}]")
     latency_s = gl_mul_latency(dev)
     print(f"one dependent Goldilocks product: {latency_s * 1e9:.3f} ns "
           f"({latency_s * rate / (SMS * IMAD_PER_SM_CLOCK):.1f} cycles at "

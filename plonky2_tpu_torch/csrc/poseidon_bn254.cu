@@ -23,10 +23,13 @@
 //
 // What bounds it on the H100: 32-bit integer multiply-adds (IMAD, 64 a clock
 // on each of the 132 SMs).  The CUDA cores keep the S-boxes (264 Montgomery
-// products a permutation) and 520 reductions (264 of the S-boxes, 256 of the
-// linear layers), 128 IMADs each: 100,352 IMADs a permutation, against the
-// CIOS form's 166,912.  The tensor-core work (64 x 128^2 byte products) is a
-// sixth of the IMAD time at 1,979 TOP/s, and a lane's 1 KB of limbs less.
+// products a permutation, 176 of them the squarings x^2 and x^4) and 520
+// reductions (264 of the S-boxes, 256 of the linear layers).  A product or a
+// reduction is 128 IMADs, a squaring 72 (36 word products, lo and hi), so
+// the function needs 90,496 IMADs a permutation in this form, against the
+// CIOS form's 157,056.  The tensor-core work (64 x 128^2 byte products) is
+// a fifth of the IMAD time at 1,979 TOP/s, and a lane's 1 KB of limbs less.
+// This kernel squares with general products: 100,352 IMADs.
 //
 // The design:
 // - a block owns a tile of 64 lanes, one thread each (2 warps).  64 rather
@@ -107,6 +110,7 @@ constexpr int SM_B = 0;
 constexpr int SM_A = SM_B + 2 * ROW * STRIDE;
 constexpr int SM_C = SM_A + TILE * STRIDE;
 constexpr int SMEM = SM_C + WARPS * 32 * STRIDE;
+constexpr int MAX_DEVICES = 64;  // devices whose shared-memory limit is kept
 
 __device__ __forceinline__ u32 smem_addr(const void* p) {
   return (u32)__cvta_generic_to_shared(p);
@@ -326,9 +330,18 @@ extern "C" int p2t_poseidon_bn254_n_const() { return N_CONST; }
 // Returns the first CUDA error, else 0.
 extern "C" int p2t_poseidon_bn254_permute(const void* in, void* out, const void* consts,
                                           const void* mats, int n, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      poseidon_bn254_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  // The shared-memory limit is set once per device (setting it twice is
+  // harmless, so a race between threads costs nothing).
+  static bool smem_set[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES || !smem_set[dev]) {
+    err = cudaFuncSetAttribute(poseidon_bn254_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAX_DEVICES) smem_set[dev] = true;
+  }
   if (n > 0) {
     poseidon_bn254_kernel<<<(n + TILE - 1) / TILE, TILE, SMEM, (cudaStream_t)stream>>>(
         (const long long*)in, (long long*)out, (const u32*)consts,

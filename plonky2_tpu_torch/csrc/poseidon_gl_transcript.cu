@@ -14,12 +14,16 @@
 // What bounds it on the H100: latency.  The scan is a chain of dependent
 // steps and a batch has only B ~ 256 chains for 132 SMs, so no multiply
 // pipe is ever busy; the time is n_perms x D x L, with L the latency of one
-// dependent Goldilocks product and D the products on one permutation's
-// critical path:
-//   D = 8 x 4 (a full round: x^7 in 3, then the MDS row)
-//     + 1     (the initial matrix before the partial rounds)
-//     + 22 x 4 (a partial round: x^7 of s0 in 3, then s0 w_0)
-//     = 121.
+// dependent Goldilocks product and D the products on the shortest critical
+// path of one permutation:
+//   D = 8 x 4  (a full round: x^7 in 3, then the MDS row)
+//     + 0      (row 0 of the initial matrix is the identity)
+//     + 22 x 3 (a partial round: d = x^7 w0 + pc w0 + rest, with x^7 w0 as
+//               x^4 (x^3 w0), x w0 beside x^2 and x^3 w0 beside x^4; pc w0
+//               is a constant; rest and s_k + x^7 vs_k take no longer)
+//     = 98.
+// This kernel's own path is 121: it multiplies s0 by the initial matrix's
+// 1 and each partial round's x^7 by w0 after the S-box (8 x 4 + 1 + 22 x 4).
 //
 // What the design does about it:
 // - one proof a group of 16 threads; thread k < 12 holds state word k, so

@@ -1,0 +1,195 @@
+"""The hand-written kernels of two source trees, timed in turns on one GPU.
+
+    python -m plonky2_tpu_torch.tools.kernel_turns [--tree DIR]
+
+Tree 0 is this checkout; ``--tree`` adds the root of another checkout of the
+repository (for example ``git archive`` of an earlier commit unpacked under
+``build/``), tree 1.  For each tree in the order 0, 1, 1, 0 (so that a drift
+of the card over the run falls on both; tree 0 alone without ``--tree``) one
+process runs from that tree's root with that tree's ``plonky2_tpu_torch`` on
+its path.  It builds the tree's kernels; checks kernel A and the CIOS kernel
+bit-exact against the plain Poseidon-BN254 at 28672 lanes (the main path's
+largest launch); times them there, in turns A, CIOS, CIOS, A, and the
+transcript kernel at B=256 on the step schedule, each over 20 launches by
+CUDA events after a warm-up; and digests each kernel's SASS (``cuobjdump
+-sass``; equal digests mean the same machine code) and the transcript's
+output.  The same seed gives every process the same inputs, so the
+transcript outputs of all processes must be equal.
+
+Prints one JSON line per process, then a summary: per tree, each kernel's
+mean time, SASS digest and instruction count, and its time over tree 0's,
+with the card's name and power limit.
+Exits 1 if a check fails.  Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[2]
+BN_LANES = 28672
+TRANSCRIPT_BATCH = 256
+ITERS = 20
+SEED = 2024
+# kernel key -> a substring of its mangled name only it has
+KERNELS = {"poseidon_bn254": "poseidon_bn254_kernel",
+           "poseidon_bn254_cios": "poseidon_bn254_cios_kernel",
+           "poseidon_gl_transcript": "transcript_kernel"}
+_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+
+
+def sass_digests(text):
+    """{kernel key: (sha256 of its instructions, instruction count)} from
+    ``cuobjdump -sass``'s output; addresses and encodings are left out."""
+    out, name, insns = {}, None, []
+
+    def close():
+        for key, needle in KERNELS.items():
+            if name and needle in name:
+                out[key] = (hashlib.sha256("\n".join(insns).encode())
+                            .hexdigest()[:16], len(insns))
+
+    for line in text.splitlines():
+        if "Function :" in line:
+            close()
+            name, insns = line.split("Function :", 1)[1].strip(), []
+        elif name:
+            m = _INSN.search(line)
+            if m:
+                insns.append(" ".join(m.group(1).split()))
+    close()
+    return out
+
+
+def summarize(runs):
+    """Per tree: mean ms of each kernel, its SASS digest and count, and its
+    time over tree 0's."""
+    trees = {}
+    for run in runs:
+        t = trees.setdefault(run["tree"], {"ms": {}, "sass": run["sass"]})
+        for key, ms in run["ms"].items():
+            t["ms"].setdefault(key, []).extend(ms)
+    for t in trees.values():
+        t["ms"] = {k: sum(v) / len(v) for k, v in t["ms"].items()}
+    base = trees[min(trees)]["ms"]
+    for t in trees.values():
+        t["over_tree_0"] = {k: v / base[k] for k, v in t["ms"].items()}
+    return trees
+
+
+def _child():
+    import numpy as np
+    import torch
+
+    from plonky2_tpu_torch.fields import bn254
+    from plonky2_tpu_torch.fields import goldilocks as gl
+    from plonky2_tpu_torch.kernels import build
+    from plonky2_tpu_torch.kernels import poseidon_bn254 as kb
+    from plonky2_tpu_torch.kernels import poseidon_bn254_cios as kc
+    from plonky2_tpu_torch.kernels import poseidon_gl_transcript as kt
+    from plonky2_tpu_torch.proof.fixtures import load_fixture
+    from plonky2_tpu_torch.transcript import challenger as chal
+
+    dev = torch.device("cuda", 0)
+    build.library()
+    rng = np.random.default_rng(SEED)
+
+    def cuda_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(ITERS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / ITERS
+
+    vals = rng.integers(0, 1 << 16, size=(BN_LANES, 4, 16), dtype=np.int64)
+    vals[..., 15] &= 0x1FFF  # < 2^253 < p
+    vals[0] = np.asarray([bn254.int_to_limbs(v) for v in
+                          (0, 1, bn254.P - 1, 2)], dtype=np.int64)
+    st = torch.as_tensor(vals).to(dev)
+    want = kb.permute_plain(st)
+    for key, mod in (("poseidon_bn254", kb), ("poseidon_bn254_cios", kc)):
+        if not torch.equal(mod.permute(st), want):
+            raise AssertionError(f"{key} differs from the plain version")
+    ms = {"poseidon_bn254": [], "poseidon_bn254_cios": []}
+    for key, mod in (("poseidon_bn254", kb), ("poseidon_bn254_cios", kc),
+                     ("poseidon_bn254_cios", kc), ("poseidon_bn254", kb)):
+        ms[key].append(cuda_ms(lambda: mod.permute(st)))
+
+    spec = load_fixture(Path.cwd() / "testdata" / "step")[0]  # the tree's
+    schedule = chal.build_schedule(spec)
+    obs = gl.split_u64(rng.integers(0, gl.P, size=(
+        TRANSCRIPT_BATCH, schedule.n_obs), dtype=np.uint64), dev)
+    pi = gl.split_u64(rng.integers(0, gl.P, size=(TRANSCRIPT_BATCH, 4),
+                                   dtype=np.uint64), dev)
+    states = kt.run_transcript_kernel(schedule, obs, pi)
+    digest = hashlib.sha256(b"".join(
+        t.cpu().numpy().tobytes() for t in states)).hexdigest()[:16]
+    ms["poseidon_gl_transcript"] = [
+        cuda_ms(lambda: kt.run_transcript_kernel(schedule, obs, pi))]
+
+    cuobjdump = (shutil.which("cuobjdump")
+                 or "/usr/local/cuda/bin/cuobjdump")
+    lib = build.BUILD_DIR / build.LIB_NAME
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    print(json.dumps({"ms": ms, "transcript_digest": digest,
+                      "sass": sass_digests(sass)}))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="plonky2_tpu_torch.tools.kernel_turns")
+    ap.add_argument("--tree", help="root of another checkout (tree 1)")
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        _child()
+        return 0
+
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_turns: needs a CUDA device", file=sys.stderr)
+        return 2
+    trees = [REPO] + ([Path(args.tree).resolve()] if args.tree else [])
+    order = [0, 1, 1, 0] if args.tree else [0]
+    runs = []
+    for i in order:
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--child"],
+            cwd=trees[i], env={**os.environ, "PYTHONPATH": str(trees[i])},
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(f"kernel_turns: tree {i} ({trees[i]}) failed:\n"
+                  f"{proc.stderr[-4000:]}", file=sys.stderr)
+            return 1
+        run = {"tree": i, **json.loads(proc.stdout.strip().splitlines()[-1])}
+        print(json.dumps(run))
+        runs.append(run)
+    digests = {run["transcript_digest"] for run in runs}
+    if len(digests) != 1:
+        print(f"kernel_turns: the transcript outputs differ: {digests}",
+              file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    summary = {"card": card, "trees": [str(t) for t in trees], "order": order,
+               "per_tree": summarize(runs)}
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
