@@ -2,13 +2,12 @@
 // kernels (poseidon_bn254.cu, poseidon_bn254_cios.cu): Montgomery products
 // and reductions (R = 2^256) as CIOS over 32-bit words.
 //
-// A CIOS row t += a b comes in two forms.  mac_row (the CIOS kernel's) is
-// one mad.lo.cc / madc.lo.cc chain and one mad.hi.cc / madc.hi.cc chain in a
-// single asm statement (the carry flag does not survive between
-// statements).  mac_row_wide (kernel A's) is 64-bit multiply-adds with the
-// carry kept in the upper half: no carry flag, so the compiler can interleave
-// independent rows; in kernel A on the H100 it ran faster than the asm form
-// (PERF.md, §6).
+// A CIOS row t += a b is 64-bit multiply-adds with the carry kept in the
+// upper half (mac_row_wide): no carry flag, so the compiler can interleave
+// independent rows.  On the H100 it ran faster than PTX carry-flag chains
+// (mad.lo.cc / madc), first in kernel A (PERF.md, §6), which this header no
+// longer has.  Kernel A's call sites still name the form (mont<true>), so
+// the template parameter stays and admits only that form.
 //
 // Values are little-endian words.  An accumulator has ACC = 10 words: the 8
 // of a field element and 2 above them, enough for four products of operands
@@ -49,34 +48,6 @@ __device__ __forceinline__ void zero(u32 (&t)[ACC]) {
   for (int k = 0; k < ACC; ++k) t[k] = 0;
 }
 
-// t += a * b: the low halves of a * b[k] into words k, then the high halves
-// into words k + 1, each as one carry chain that ends in the top words.
-__device__ __forceinline__ void mac_row(u32 (&t)[ACC], u32 a, const Fe& b) {
-  asm("mad.lo.cc.u32  %0, %10, %11, %0;\n\t"
-      "madc.lo.cc.u32 %1, %10, %12, %1;\n\t"
-      "madc.lo.cc.u32 %2, %10, %13, %2;\n\t"
-      "madc.lo.cc.u32 %3, %10, %14, %3;\n\t"
-      "madc.lo.cc.u32 %4, %10, %15, %4;\n\t"
-      "madc.lo.cc.u32 %5, %10, %16, %5;\n\t"
-      "madc.lo.cc.u32 %6, %10, %17, %6;\n\t"
-      "madc.lo.cc.u32 %7, %10, %18, %7;\n\t"
-      "addc.cc.u32    %8, %8, 0;\n\t"
-      "addc.u32       %9, %9, 0;\n\t"
-      "mad.hi.cc.u32  %1, %10, %11, %1;\n\t"
-      "madc.hi.cc.u32 %2, %10, %12, %2;\n\t"
-      "madc.hi.cc.u32 %3, %10, %13, %3;\n\t"
-      "madc.hi.cc.u32 %4, %10, %14, %4;\n\t"
-      "madc.hi.cc.u32 %5, %10, %15, %5;\n\t"
-      "madc.hi.cc.u32 %6, %10, %16, %6;\n\t"
-      "madc.hi.cc.u32 %7, %10, %17, %7;\n\t"
-      "madc.hi.cc.u32 %8, %10, %18, %8;\n\t"
-      "addc.u32       %9, %9, 0;"
-      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
-        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
-      : "r"(a), "r"(b.w[0]), "r"(b.w[1]), "r"(b.w[2]), "r"(b.w[3]),
-        "r"(b.w[4]), "r"(b.w[5]), "r"(b.w[6]), "r"(b.w[7]));
-}
-
 // t += a * b as 64-bit multiply-adds: a b[k] + t[k] + carry < 2^64.
 __device__ __forceinline__ void mac_row_wide(u32 (&t)[ACC], u32 a, const Fe& b) {
   u64 c = 0;
@@ -92,13 +63,11 @@ __device__ __forceinline__ void mac_row_wide(u32 (&t)[ACC], u32 a, const Fe& b) 
 }
 
 // One CIOS reduction: add m p so the low word is 0, then drop it.
-template <bool WIDE = false>
+template <bool WIDE = true>
 __device__ __forceinline__ void reduce_step(u32 (&t)[ACC]) {
+  static_assert(WIDE, "only the 64-bit multiply-add row form is left");
   const u32 m = t[0] * kN0;
-  if (WIDE)
-    mac_row_wide(t, m, fe_p());
-  else
-    mac_row(t, m, fe_p());
+  mac_row_wide(t, m, fe_p());
 #pragma unroll
   for (int k = 0; k < ACC - 1; ++k) t[k] = t[k + 1];
   t[ACC - 1] = 0;
@@ -144,17 +113,72 @@ __device__ __forceinline__ Fe low(const u32 (&t)[ACC]) {
 
 // t = x y / 2^256 + k p for x, y < 2p: below 2p (p < 0.19 * 2^256), in
 // t[0..7].
-template <bool WIDE = false>
+template <bool WIDE = true>
 __device__ __forceinline__ void mont(u32 (&t)[ACC], const Fe& x, const Fe& y) {
   zero(t);
 #pragma unroll
   for (int i = 0; i < NW; ++i) {
-    if (WIDE)
-      mac_row_wide(t, x.w[i], y);
-    else
-      mac_row(t, x.w[i], y);
+    mac_row_wide(t, x.w[i], y);
     reduce_step<WIDE>(t);
   }
+}
+
+// x^2 / 2^256 + k p for x < 2p, a Montgomery squaring in 36 word products
+// and 8 reduction steps: the 28 products x_i x_j (i < j) once into a
+// 16-word r, r doubled, the 8 squares x_i^2 added (r = x^2 < 4p^2 < 2^512),
+// then per word i, m = r_i (-p^-1) mod 2^32 and r += m p 2^(32 i) with the
+// carry out of word i + 8 kept in h (h 2^(32(i+9)) + r <= x^2 + (2^256 - 1) p
+// < 2^512, so h ends 0).  The result, r's upper 8 words, is below
+// 4p^2/2^256 + p < 1.76p.
+__device__ __forceinline__ Fe sqr(const Fe& x) {
+  u32 r[2 * NW];
+#pragma unroll
+  for (int k = 0; k < 2 * NW; ++k) r[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NW - 1; ++i) {
+    u64 c = 0;
+#pragma unroll
+    for (int j = i + 1; j < NW; ++j) {
+      c += (u64)x.w[i] * x.w[j] + r[i + j];
+      r[i + j] = (u32)c;
+      c >>= 32;
+    }
+    r[i + NW] = (u32)c;
+  }
+#pragma unroll
+  for (int k = 2 * NW - 1; k > 0; --k) r[k] = __funnelshift_l(r[k - 1], r[k], 1);
+  r[0] <<= 1;
+  u64 c = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const u64 d = (u64)x.w[i] * x.w[i];
+    c += (u64)r[2 * i] + (u32)d;
+    r[2 * i] = (u32)c;
+    c >>= 32;
+    c += (u64)r[2 * i + 1] + (d >> 32);
+    r[2 * i + 1] = (u32)c;
+    c >>= 32;
+  }
+  const Fe p = fe_p();
+  u32 h = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const u32 m = r[i] * kN0;
+    u64 c2 = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      c2 += (u64)m * p.w[j] + r[i + j];
+      r[i + j] = (u32)c2;
+      c2 >>= 32;
+    }
+    c2 += (u64)r[i + NW] + h;
+    r[i + NW] = (u32)c2;
+    h = (u32)(c2 >> 32);
+  }
+  Fe out;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) out.w[k] = r[NW + k];
+  return out;
 }
 
 }  // namespace

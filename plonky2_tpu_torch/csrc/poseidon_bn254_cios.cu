@@ -17,9 +17,9 @@
 //
 // What the design does about it:
 // - one thread per permutation lane; each field element is 8 x 32-bit words
-//   in registers; a Montgomery pass is CIOS over those words, each row one
-//   mad.lo.cc / madc.lo.cc chain and one mad.hi.cc / madc.hi.cc chain
-//   (bn254_mont.cuh, shared with kernel A);
+//   in registers; a Montgomery pass is CIOS over those words, each row
+//   64-bit multiply-adds (bn254_mont.cuh, shared with kernel A); x^2 and x^4
+//   are dedicated squarings (36 word products, then 8 reduction steps);
 // - relaxed domain: values stay in [0, 2p) between rounds.  A product of two
 //   operands below 2p is below 2p after its reduction (p < 0.19 * 2^256), so
 //   a single product needs no subtraction; one conditional subtraction of 2p
@@ -33,9 +33,8 @@
 // - four products of operands below 2p and constants below p add up past
 //   2^288 inside a pass, so the accumulator has two words above the eight;
 //   the subtraction of 2p compares all nine low words;
-// - the 516 round constants (16.5 KB) live in __constant__ memory, copied
-//   from the wrapper's device buffer on the launch's stream; every read is
-//   warp-uniform, so the constant cache broadcasts it.
+// - the 516 round constants (16.5 KB) are copied into shared memory once a
+//   block from the wrapper's device buffer.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,58 +58,59 @@ constexpr int OFF_PART_C = OFF_P + 16;                   // [56]
 constexpr int OFF_S_ROW = OFF_PART_C + PARTIAL;          // [56][4]
 constexpr int OFF_S_COL = OFF_S_ROW + PARTIAL * 4;       // [56][3]
 constexpr int N_CONST = OFF_S_COL + PARTIAL * 3;
+constexpr int THREADS = 128;
 
-__constant__ u32 kC[N_CONST * NW];
-
-__device__ __forceinline__ Fe load_const(int idx) {
-  Fe r;
-#pragma unroll
-  for (int k = 0; k < NW; ++k) r.w[k] = kC[idx * NW + k];
-  return r;
+__device__ __forceinline__ Fe load_const(const u32* c, int idx) {
+  const uint4* p = reinterpret_cast<const uint4*>(c + idx * NW);
+  const uint4 lo = p[0], hi = p[1];
+  return Fe{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
 }
 
 // t = (sum_j C[base + j stride] s_j) / 2^256 + k p: one fused pass over NP
 // products of constants (< p) and state elements (< 2p); below 2.6 p.
 template <int NP>
-__device__ __forceinline__ void const_pass(u32 (&t)[ACC], const Fe* s, int base,
-                                           int stride) {
+__device__ __forceinline__ void const_pass(u32 (&t)[ACC], const u32* c,
+                                           const Fe* s, int base, int stride) {
   zero(t);
 #pragma unroll
   for (int i = 0; i < NW; ++i) {
 #pragma unroll
-    for (int j = 0; j < NP; ++j) mac_row(t, kC[(base + j * stride) * NW + i], s[j]);
+    for (int j = 0; j < NP; ++j)
+      mac_row_wide(t, c[(base + j * stride) * NW + i], s[j]);
     reduce_step(t);
   }
 }
 
 // x^5 + ark for x < 2p; below 2p.
-__device__ __forceinline__ Fe exp5_ark(const Fe& x, int ark) {
+__device__ __forceinline__ Fe exp5_ark(const Fe& x, const Fe& ark) {
+  const Fe x4 = sqr(sqr(x));
   u32 t[ACC];
-  mont(t, x, x);
-  const Fe x2 = low(t);
-  mont(t, x2, x2);
-  const Fe x4 = low(t);
   mont(t, x4, x);
-  add_fold(t, load_const(ark));  // below 3p
+  add_fold(t, ark);  // below 2.76p
   return cond_sub(t, fe_2p());
 }
 
 // out_i = sum_j M[j][i] s_j, each output one fused pass; below 2p.
-__device__ __forceinline__ void mix(Fe (&s)[WIDTH], int off) {
+__device__ __forceinline__ void mix(Fe (&s)[WIDTH], const u32* c, int off) {
   Fe out[WIDTH];
   u32 t[ACC];
 #pragma unroll
   for (int i = 0; i < WIDTH; ++i) {
-    const_pass<WIDTH>(t, s, off + i, WIDTH);
+    const_pass<WIDTH>(t, c, s, off + i, WIDTH);
     out[i] = cond_sub(t, fe_2p());
   }
 #pragma unroll
   for (int i = 0; i < WIDTH; ++i) s[i] = out[i];
 }
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(THREADS)
 poseidon_bn254_cios_kernel(const long long* __restrict__ in,
-                           long long* __restrict__ out, int n) {
+                           long long* __restrict__ out,
+                           const u32* __restrict__ consts, int n) {
+  __shared__ __align__(16) u32 kC[N_CONST * NW];
+  for (int q = threadIdx.x; q < N_CONST * NW / 4; q += THREADS)
+    reinterpret_cast<uint4*>(kC)[q] = __ldg(reinterpret_cast<const uint4*>(consts) + q);
+  __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   const long long* src = in + (size_t)lane * WIDTH * 16;
@@ -125,26 +125,27 @@ poseidon_bn254_cios_kernel(const long long* __restrict__ in,
     // canonical + canonical < 2p: stays in the relaxed domain
     zero(t);
     add_fold(t, x);
-    add_fold(t, load_const(OFF_ARK0 + e));
+    add_fold(t, load_const(kC, OFF_ARK0 + e));
     s[e] = low(t);
   }
 
 #pragma unroll 1
   for (int r = 0; r < HALF_FULL; ++r) {
 #pragma unroll
-    for (int e = 0; e < WIDTH; ++e) s[e] = exp5_ark(s[e], OFF_ARK_FIRST + r * WIDTH + e);
-    mix(s, r == HALF_FULL - 1 ? OFF_P : OFF_M);
+    for (int e = 0; e < WIDTH; ++e)
+      s[e] = exp5_ark(s[e], load_const(kC, OFF_ARK_FIRST + r * WIDTH + e));
+    mix(s, kC, r == HALF_FULL - 1 ? OFF_P : OFF_M);
   }
 
 #pragma unroll 1
   for (int r = 0; r < PARTIAL; ++r) {
-    s[0] = exp5_ark(s[0], OFF_PART_C + r);
-    const_pass<WIDTH>(t, s, OFF_S_ROW + r * WIDTH, 1);
+    s[0] = exp5_ark(s[0], load_const(kC, OFF_PART_C + r));
+    const_pass<WIDTH>(t, kC, s, OFF_S_ROW + r * WIDTH, 1);
     const Fe new0 = cond_sub(t, fe_2p());
 #pragma unroll
     for (int k = 1; k < WIDTH; ++k) {
       // s_k + s0 * s_col[k-1]: s_k folded into the product's accumulator
-      const_pass<1>(t, s, OFF_S_COL + r * (WIDTH - 1) + k - 1, 0);
+      mont(t, s[0], load_const(kC, OFF_S_COL + r * (WIDTH - 1) + k - 1));
       add_fold(t, s[k]);  // below 3.4p
       s[k] = cond_sub(t, fe_2p());
     }
@@ -154,8 +155,9 @@ poseidon_bn254_cios_kernel(const long long* __restrict__ in,
 #pragma unroll 1
   for (int r = 0; r < HALF_FULL; ++r) {
 #pragma unroll
-    for (int e = 0; e < WIDTH; ++e) s[e] = exp5_ark(s[e], OFF_ARK_SECOND + r * WIDTH + e);
-    mix(s, OFF_M);
+    for (int e = 0; e < WIDTH; ++e)
+      s[e] = exp5_ark(s[e], load_const(kC, OFF_ARK_SECOND + r * WIDTH + e));
+    mix(s, kC, OFF_M);
   }
 
   long long* dst = out + (size_t)lane * WIDTH * 16;
@@ -174,21 +176,16 @@ poseidon_bn254_cios_kernel(const long long* __restrict__ in,
 
 extern "C" int p2t_poseidon_bn254_cios_n_const() { return N_CONST; }
 
-// in, out: (n, 4, 16) int64 Montgomery 16-bit limbs, contiguous, on the device.
-// consts: N_CONST * 8 u32 words on the device, copied into constant memory on
-// the stream before the launch.  Returns the first CUDA error, else 0.
+// in, out: (n, 4, 16) int64 Montgomery limbs, contiguous, on the device.
+// consts: N_CONST * 8 u32 words on the device, 16-byte aligned.  Returns the
+// first CUDA error, else 0.
 extern "C" int p2t_poseidon_bn254_cios_permute(const void* in, void* out,
                                                const void* consts, int n,
                                                void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemcpyToSymbolAsync(kC, consts, sizeof(kC), 0,
-                                            cudaMemcpyDeviceToDevice, st);
-  if (err != cudaSuccess) return (int)err;
   if (n > 0) {
-    const int threads = 128;
-    const int blocks = (n + threads - 1) / threads;
-    poseidon_bn254_cios_kernel<<<blocks, threads, 0, st>>>(
-        (const long long*)in, (long long*)out, n);
+    const int blocks = (n + THREADS - 1) / THREADS;
+    poseidon_bn254_cios_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const long long*)in, (long long*)out, (const u32*)consts, n);
   }
   return (int)cudaGetLastError();
 }
