@@ -1,5 +1,5 @@
 // Poseidon-BN254 permutation (width 4, x^5, 8 full + 56 partial rounds) for
-// Hopper (sm_90a): the CIOS variant on 32-bit multiply-add carry chains.
+// Hopper (sm_90a): the CIOS variant, a group of four threads per lane.
 //
 // Replaces the Pallas TPU kernel plonky2_tpu/kernels/poseidon_bn254_pallas.py
 // (permute / permute_lanes -> _kernel, with _multi_cios, _exp5_ark, _carry and
@@ -9,32 +9,71 @@
 // default.  Canonical Montgomery state in, canonical state out, bit-exact with
 // the torch plain version (hash/poseidon_bn254.permute_plain).
 //
-// What bounds it on the H100: 32-bit integer multiply throughput (IMAD, 64 a
-// clock on each of the 132 SMs).  One permutation is 784 256-bit products and
-// 520 Montgomery reductions, each 8 x 8 words x (lo, hi) = 128 IMADs; a lane
-// reads and writes 1 KB, which is negligible beside that.  Hopper has no 64-bit
-// integer multiplier, so the words are 32 bits.
+// What bounds it on the H100: 32-bit integer multiply-adds (IMAD, 64 a clock
+// on each of the 132 SMs).  A 256-bit product or a Montgomery reduction is
+// 8 x 8 word products, lo and hi (128 IMADs), a squaring 36 (72 IMADs); a
+// lane reads and writes 1 KB, which is negligible beside that.  Hopper has no
+// 64-bit integer multiplier, so the words are 32 bits.  The main path
+// launches it at 7168 lanes (51 launches a step batch: leaf scans and FRI
+// layers) and at 28672 (12: the Merkle chains of four oracles at once).  One
+// thread a lane leaves 7168 lanes at 1.7 warps an SM, so the time is one
+// thread's serial chain of products, not the IMAD rate.
 //
-// What the design does about it:
-// - one thread per permutation lane; each field element is 8 x 32-bit words
-//   in registers; a Montgomery pass is CIOS over those words, each row
-//   64-bit multiply-adds (bn254_mont.cuh, shared with kernel A); x^2 and x^4
-//   are dedicated squarings (36 word products, then 8 reduction steps);
-// - relaxed domain: values stay in [0, 2p) between rounds.  A product of two
-//   operands below 2p is below 2p after its reduction (p < 0.19 * 2^256), so
-//   a single product needs no subtraction; one conditional subtraction of 2p
-//   follows a fused pass or an added constant, and one of p ends the run;
-// - fused passes: each linear-layer output sum_j M[j][i] s_j, and a partial
-//   round's new s0, is one multi-product pass that shares one reduction per
-//   word across its four products.  Additive terms (round constants, st[k] in
-//   a partial round) are added to the accumulator after the pass, as
-//   _multi_cios(extra=...) does.  Per permutation that is 520 reductions
-//   instead of 784 (full round 12 + 4, partial round 3 + 1 + 3);
-// - four products of operands below 2p and constants below p add up past
-//   2^288 inside a pass, so the accumulator has two words above the eight;
-//   the subtraction of 2p compares all nine low words;
+// The design:
+// - a group of G = 4 neighbouring threads owns a lane; thread e holds state
+//   element e as 8 x 32-bit words in registers.  A block is 32 lanes (128
+//   threads), so 7168 lanes are 224 blocks of 4 warps;
+// - full round: each thread computes its own element's S-box; the group
+//   exchanges the four results (__shfl_sync within the group) and thread i
+//   computes output i of the linear layer as one fused pass over four
+//   products, sharing one reduction per word;
+// - partial round: every thread computes x = s0^5 + c itself (the threads of
+//   a warp issue together, so a lone thread would cost the same), then
+//   thread j computes row_j s_j (s_0 = x) and, for j > 0, s_j + x col_j, two
+//   independent products interleaved; the four row terms are summed by two
+//   shuffle-xor steps, so every thread holds the new s0.  A partial round's
+//   chain is the S-box's three products and then two interleaved products,
+//   not 3 + 7 on one thread;
+// - rows are 64-bit multiply-adds and x^2, x^4 dedicated squarings
+//   (bn254_mont.cuh, shared with kernel A);
 // - the 516 round constants (16.5 KB) are copied into shared memory once a
-//   block from the wrapper's device buffer.
+//   block from the wrapper's device buffer; the four threads of a group read
+//   four different elements, 8 words apart, so four banks, no conflict;
+// - thread e reads and writes only its element's 16 limbs (128 contiguous
+//   bytes), so a warp's loads cover 4 KB without gaps.  Lanes past n repeat
+//   lane n - 1 and store nothing, so every group takes part in the shuffles.
+//
+// Exactness: values stay in the relaxed domain [0, 2p) between rounds and
+// every accumulator holds its largest value (p < 0.19 * 2^256; c < p is a
+// constant, a, b < 2p state values; tests/test_torch_cios_words.py models
+// the words and asserts each bound):
+// - a CIOS row t += a_i b then t += m p leaves t < 2^32 (b + p) before the
+//   word shift, below 3 * 2^32 p < 2^288 for b < 2p: the ACC = 10 words hold
+//   it; a fused pass over four products c_j y_j (multiplier words from the
+//   constants, y_j < 2p) stays below 2^32 (8p + p) < 2^289;
+// - a product's result t = (a b + m p) / 2^256 < a b / 2^256 + p: below
+//   1.76p for a, b < 2p (x^5 = x^4 x), below 1.38p for a < 2p by c < p (a
+//   partial round's row and column terms), below 2.52p for a fused pass of
+//   four (one subtraction of 2p makes it < 2p);
+// - a squaring's 16-word product r = x^2 < 4p^2 < 2^512; its reduction keeps
+//   r + h 2^(32(i+9)) <= x^2 + (2^256 - 1) p < 2^512, so h ends 0 and the
+//   result is below 1.76p;
+// - x^5 + c < 2.76p, one subtraction of 2p: < 2p; s_j + x col_j < 3.38p,
+//   one subtraction: < 2p;
+// - the new s0, sum of four row terms each < 1.38p: the first shuffle step
+//   adds two (< 2.76p) and subtracts 2p if it can (< 2p), the second adds
+//   two of those (< 4p < 2^256) and subtracts 2p again (< 2p).  Summing all
+//   four first (< 5.52p, past 2^256) would need a ninth word and two
+//   subtractions in a row;
+// - ark0 + a canonical input < 2p; the output subtracts p once.
+//
+// What still holds it back (PERF.md, §6): the partial rounds' S-box is three
+// dependent products that all four threads of a group repeat, so a lane
+// issues about 1.8 times the IMADs of the one-thread form; at 28672 lanes
+// the card has the warps to hide latency and pays for that.
+//
+// ptxas -v (sm_90a, nvcc 12.9, printed by chip_smoke.py on the H100):
+// not yet measured.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,7 +97,11 @@ constexpr int OFF_PART_C = OFF_P + 16;                   // [56]
 constexpr int OFF_S_ROW = OFF_PART_C + PARTIAL;          // [56][4]
 constexpr int OFF_S_COL = OFF_S_ROW + PARTIAL * 4;       // [56][3]
 constexpr int N_CONST = OFF_S_COL + PARTIAL * 3;
-constexpr int THREADS = 128;
+
+constexpr int G = WIDTH;               // threads a lane, thread e = element e
+constexpr int LANES = 32;              // lanes a block
+constexpr int THREADS = G * LANES;
+constexpr unsigned ALL = 0xffffffffu;  // every thread of a warp shuffles
 
 __device__ __forceinline__ Fe load_const(const u32* c, int idx) {
   const uint4* p = reinterpret_cast<const uint4*>(c + idx * NW);
@@ -66,41 +109,64 @@ __device__ __forceinline__ Fe load_const(const u32* c, int idx) {
   return Fe{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
 }
 
-// t = (sum_j C[base + j stride] s_j) / 2^256 + k p: one fused pass over NP
-// products of constants (< p) and state elements (< 2p); below 2.6 p.
-template <int NP>
-__device__ __forceinline__ void const_pass(u32 (&t)[ACC], const u32* c,
-                                           const Fe* s, int base, int stride) {
+// Element x of thread src of this thread's group.
+__device__ __forceinline__ Fe shfl(const Fe& x, int src) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) r.w[k] = __shfl_sync(ALL, x.w[k], src, G);
+  return r;
+}
+
+__device__ __forceinline__ Fe shfl_xor(const Fe& x, int mask) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) r.w[k] = __shfl_xor_sync(ALL, x.w[k], mask, G);
+  return r;
+}
+
+__device__ __forceinline__ Fe select(bool c, const Fe& a, const Fe& b) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) r.w[k] = c ? a.w[k] : b.w[k];
+  return r;
+}
+
+// a + b for a + b < 4p, less 2p if at least 2p: below 2p.
+__device__ __forceinline__ Fe add_2p(const Fe& a, const Fe& b) {
+  u32 t[ACC];
   zero(t);
-#pragma unroll
-  for (int i = 0; i < NW; ++i) {
-#pragma unroll
-    for (int j = 0; j < NP; ++j)
-      mac_row_wide(t, c[(base + j * stride) * NW + i], s[j]);
-    reduce_step(t);
-  }
+  add_fold(t, a);
+  add_fold(t, b);
+  return cond_sub(t, fe_2p());
 }
 
 // x^5 + ark for x < 2p; below 2p.
 __device__ __forceinline__ Fe exp5_ark(const Fe& x, const Fe& ark) {
   const Fe x4 = sqr(sqr(x));
   u32 t[ACC];
-  mont(t, x4, x);
+  mont(t, x4, x);    // below 1.76p
   add_fold(t, ark);  // below 2.76p
   return cond_sub(t, fe_2p());
 }
 
-// out_i = sum_j M[j][i] s_j, each output one fused pass; below 2p.
-__device__ __forceinline__ void mix(Fe (&s)[WIDTH], const u32* c, int off) {
-  Fe out[WIDTH];
+// Full round for this thread's element e: the S-box, then output e of the
+// linear layer sum_j M[j][e] y_j (M at off, [j][i]) as one fused pass; < 2p.
+__device__ __forceinline__ Fe full_round(const Fe& s, const u32* c, int ark,
+                                         int off, int e) {
+  const Fe y = exp5_ark(s, load_const(c, ark));
+  Fe ys[WIDTH];
+#pragma unroll
+  for (int j = 0; j < WIDTH; ++j) ys[j] = shfl(y, j);
   u32 t[ACC];
+  zero(t);
 #pragma unroll
-  for (int i = 0; i < WIDTH; ++i) {
-    const_pass<WIDTH>(t, c, s, off + i, WIDTH);
-    out[i] = cond_sub(t, fe_2p());
+  for (int i = 0; i < NW; ++i) {
+#pragma unroll
+    for (int j = 0; j < WIDTH; ++j)
+      mac_row_wide(t, c[(off + j * WIDTH + e) * NW + i], ys[j]);
+    reduce_step(t);
   }
-#pragma unroll
-  for (int i = 0; i < WIDTH; ++i) s[i] = out[i];
+  return cond_sub(t, fe_2p());  // below 2.52p before
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -111,65 +177,66 @@ poseidon_bn254_cios_kernel(const long long* __restrict__ in,
   for (int q = threadIdx.x; q < N_CONST * NW / 4; q += THREADS)
     reinterpret_cast<uint4*>(kC)[q] = __ldg(reinterpret_cast<const uint4*>(consts) + q);
   __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  const long long* src = in + (size_t)lane * WIDTH * 16;
-  Fe s[WIDTH];
+
+  const int e = threadIdx.x % G;
+  const int want = blockIdx.x * LANES + threadIdx.x / G;
+  const int lane = min(want, n - 1);
+  const long long* src = in + ((size_t)lane * WIDTH + e) * 16;
+  Fe x;
+#pragma unroll
+  for (int k = 0; k < NW; ++k)
+    x.w[k] = (u32)src[2 * k] | ((u32)src[2 * k + 1] << 16);
+  // canonical + canonical < 2p: stays in the relaxed domain
   u32 t[ACC];
-#pragma unroll
-  for (int e = 0; e < WIDTH; ++e) {
-    Fe x;
-#pragma unroll
-    for (int k = 0; k < NW; ++k)
-      x.w[k] = (u32)src[e * 16 + 2 * k] | ((u32)src[e * 16 + 2 * k + 1] << 16);
-    // canonical + canonical < 2p: stays in the relaxed domain
-    zero(t);
-    add_fold(t, x);
-    add_fold(t, load_const(kC, OFF_ARK0 + e));
-    s[e] = low(t);
-  }
+  zero(t);
+  add_fold(t, x);
+  add_fold(t, load_const(kC, OFF_ARK0 + e));
+  Fe s = low(t);
 
 #pragma unroll 1
-  for (int r = 0; r < HALF_FULL; ++r) {
-#pragma unroll
-    for (int e = 0; e < WIDTH; ++e)
-      s[e] = exp5_ark(s[e], load_const(kC, OFF_ARK_FIRST + r * WIDTH + e));
-    mix(s, kC, r == HALF_FULL - 1 ? OFF_P : OFF_M);
-  }
+  for (int r = 0; r < HALF_FULL; ++r)
+    s = full_round(s, kC, OFF_ARK_FIRST + r * WIDTH + e,
+                   r == HALF_FULL - 1 ? OFF_P : OFF_M, e);
 
+  Fe s0 = shfl(s, 0);
+  const int col = OFF_S_COL + (e == 0 ? 0 : e - 1);  // thread 0's is unused
 #pragma unroll 1
   for (int r = 0; r < PARTIAL; ++r) {
-    s[0] = exp5_ark(s[0], load_const(kC, OFF_PART_C + r));
-    const_pass<WIDTH>(t, kC, s, OFF_S_ROW + r * WIDTH, 1);
-    const Fe new0 = cond_sub(t, fe_2p());
+    const Fe x5 = exp5_ark(s0, load_const(kC, OFF_PART_C + r));
+    const Fe a = select(e == 0, x5, s);
+    const Fe c_row = load_const(kC, OFF_S_ROW + r * WIDTH + e);
+    const Fe c_col = load_const(kC, col + r * (WIDTH - 1));
+    u32 t_row[ACC], t_col[ACC];
+    zero(t_row);
+    zero(t_col);
 #pragma unroll
-    for (int k = 1; k < WIDTH; ++k) {
-      // s_k + s0 * s_col[k-1]: s_k folded into the product's accumulator
-      mont(t, s[0], load_const(kC, OFF_S_COL + r * (WIDTH - 1) + k - 1));
-      add_fold(t, s[k]);  // below 3.4p
-      s[k] = cond_sub(t, fe_2p());
+    for (int i = 0; i < NW; ++i) {
+      mac_row_wide(t_row, a.w[i], c_row);
+      mac_row_wide(t_col, x5.w[i], c_col);
+      reduce_step(t_row);
+      reduce_step(t_col);
     }
-    s[0] = new0;
+    add_fold(t_col, s);  // s_e + x5 col_e: below 3.38p
+    const Fe sk = cond_sub(t_col, fe_2p());
+    Fe v = low(t_row);   // row_e s_e: below 1.38p
+    v = add_2p(v, shfl_xor(v, 1));
+    v = add_2p(v, shfl_xor(v, 2));
+    s0 = v;
+    s = select(e == 0, v, sk);
   }
 
 #pragma unroll 1
-  for (int r = 0; r < HALF_FULL; ++r) {
-#pragma unroll
-    for (int e = 0; e < WIDTH; ++e)
-      s[e] = exp5_ark(s[e], load_const(kC, OFF_ARK_SECOND + r * WIDTH + e));
-    mix(s, kC, OFF_M);
-  }
+  for (int r = 0; r < HALF_FULL; ++r)
+    s = full_round(s, kC, OFF_ARK_SECOND + r * WIDTH + e, OFF_M, e);
 
-  long long* dst = out + (size_t)lane * WIDTH * 16;
+  if (want >= n) return;
+  zero(t);
+  add_fold(t, s);
+  const Fe c = cond_sub(t, fe_p());  // relaxed (< 2p) -> canonical
+  long long* dst = out + ((size_t)lane * WIDTH + e) * 16;
 #pragma unroll
-  for (int e = 0; e < WIDTH; ++e) {
-    zero(t);
-    add_fold(t, s[e]);
-    const Fe c = cond_sub(t, fe_p());  // relaxed (< 2p) -> canonical
-#pragma unroll
-    for (int k = 0; k < 16; ++k)
-      dst[e * 16 + k] = (long long)((c.w[k / 2] >> (16 * (k % 2))) & 0xFFFFu);
-  }
+  for (int k = 0; k < 16; ++k)
+    dst[k] = (long long)((c.w[k / 2] >> (16 * (k % 2))) & 0xFFFFu);
 }
 
 }  // namespace
@@ -183,7 +250,7 @@ extern "C" int p2t_poseidon_bn254_cios_permute(const void* in, void* out,
                                                const void* consts, int n,
                                                void* stream) {
   if (n > 0) {
-    const int blocks = (n + THREADS - 1) / THREADS;
+    const int blocks = (n + LANES - 1) / LANES;
     poseidon_bn254_cios_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
         (const long long*)in, (long long*)out, (const u32*)consts, n);
   }

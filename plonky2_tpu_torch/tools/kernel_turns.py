@@ -1,24 +1,28 @@
 """The hand-written kernels of two source trees, timed in turns on one GPU.
 
-    python -m plonky2_tpu_torch.tools.kernel_turns [--tree DIR]
+    python -m plonky2_tpu_torch.tools.kernel_turns [--tree DIR]...
 
-Tree 0 is this checkout; ``--tree`` adds the root of another checkout of the
-repository (for example ``git archive`` of an earlier commit unpacked under
-``build/``), tree 1.  For each tree in the order 0, 1, 1, 0 (so that a drift
-of the card over the run falls on both; tree 0 alone without ``--tree``) one
-process runs from that tree's root with that tree's ``plonky2_tpu_torch`` on
-its path.  It builds the tree's kernels; checks kernel A and the CIOS kernel
-bit-exact against the plain Poseidon-BN254 at 28672 lanes (the main path's
-largest launch); times them there, in turns A, CIOS, CIOS, A, and the
-transcript kernel at B=256 on the step schedule, each over 20 launches by
-CUDA events after a warm-up; and digests each kernel's SASS (``cuobjdump
+Tree 0 is this checkout; each ``--tree`` adds the root of another checkout
+of the repository (for example ``git archive`` of an earlier commit unpacked
+under ``build/``), trees 1, 2, ...  For each tree in the order 0, 1, ..., k,
+k, ..., 1, 0 (so that a drift of the card over the run falls on all; tree 0
+alone without ``--tree``) one process runs from that tree's root with that
+tree's ``plonky2_tpu_torch`` on its path.  It builds the tree's kernels;
+checks kernel A and the CIOS kernel bit-exact against the plain
+Poseidon-BN254 at each lane count the main path launches them at (7168: a
+leaf-scan step or FRI layer of a step batch of 256; 28672: a Merkle level of
+four oracles at once); times them at each, in turns A, CIOS, CIOS, A, and
+the transcript kernel at B=256 on the step schedule, each over 20 launches
+by CUDA events after a warm-up; digests each kernel's SASS (``cuobjdump
 -sass``; equal digests mean the same machine code) and the transcript's
-output.  The same seed gives every process the same inputs, so the
-transcript outputs of all processes must be equal.
+output; and keeps ``ptxas -v``'s lines of the build.  The same seed gives
+every process the same inputs, so the transcript outputs of all processes
+must be equal.
 
 Prints one JSON line per process, then a summary: per tree, each kernel's
-mean time, SASS digest and instruction count, and its time over tree 0's,
-with the card's name and power limit.
+mean time (keys ``name@lanes`` for the BN254 kernels), SASS digest and
+instruction count, and its time over tree 0's, with the card's name and
+power limit.
 Exits 1 if a check fails.  Needs one CUDA device.
 """
 
@@ -35,7 +39,7 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
-BN_LANES = 28672
+BN_LANES = (7168, 28672)
 TRANSCRIPT_BATCH = 256
 ITERS = 20
 SEED = 2024
@@ -85,6 +89,12 @@ def summarize(runs):
     return trees
 
 
+def turn_order(n_trees):
+    """Trees in the order 0, 1, ..., k, k, ..., 1, 0; tree 0 once alone."""
+    up = list(range(n_trees))
+    return up if n_trees == 1 else up + up[::-1]
+
+
 def _child():
     import numpy as np
     import torch
@@ -114,19 +124,22 @@ def _child():
         torch.cuda.synchronize()
         return start.elapsed_time(end) / ITERS
 
-    vals = rng.integers(0, 1 << 16, size=(BN_LANES, 4, 16), dtype=np.int64)
-    vals[..., 15] &= 0x1FFF  # < 2^253 < p
-    vals[0] = np.asarray([bn254.int_to_limbs(v) for v in
-                          (0, 1, bn254.P - 1, 2)], dtype=np.int64)
-    st = torch.as_tensor(vals).to(dev)
-    want = kb.permute_plain(st)
-    for key, mod in (("poseidon_bn254", kb), ("poseidon_bn254_cios", kc)):
-        if not torch.equal(mod.permute(st), want):
-            raise AssertionError(f"{key} differs from the plain version")
-    ms = {"poseidon_bn254": [], "poseidon_bn254_cios": []}
-    for key, mod in (("poseidon_bn254", kb), ("poseidon_bn254_cios", kc),
-                     ("poseidon_bn254_cios", kc), ("poseidon_bn254", kb)):
-        ms[key].append(cuda_ms(lambda: mod.permute(st)))
+    ms = {}
+    for lanes in BN_LANES:
+        vals = rng.integers(0, 1 << 16, size=(lanes, 4, 16), dtype=np.int64)
+        vals[..., 15] &= 0x1FFF  # < 2^253 < p
+        vals[0] = np.asarray([bn254.int_to_limbs(v) for v in
+                              (0, 1, bn254.P - 1, 2)], dtype=np.int64)
+        st = torch.as_tensor(vals).to(dev)
+        want = kb.permute_plain(st)
+        for key, mod in (("poseidon_bn254", kb), ("poseidon_bn254_cios", kc)):
+            if not torch.equal(mod.permute(st), want):
+                raise AssertionError(f"{key} differs from the plain version "
+                                     f"at {lanes} lanes")
+        for key, mod in (("poseidon_bn254", kb), ("poseidon_bn254_cios", kc),
+                         ("poseidon_bn254_cios", kc), ("poseidon_bn254", kb)):
+            ms.setdefault(f"{key}@{lanes}", []).append(
+                cuda_ms(lambda: mod.permute(st)))
 
     spec = load_fixture(Path.cwd() / "testdata" / "step")[0]  # the tree's
     schedule = chal.build_schedule(spec)
@@ -145,13 +158,16 @@ def _child():
     lib = build.BUILD_DIR / build.LIB_NAME
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
+    ptxas = [line.strip() for line in build.ptxas_log().splitlines()
+             if "registers" in line or "spill" in line or "==" in line]
     print(json.dumps({"ms": ms, "transcript_digest": digest,
-                      "sass": sass_digests(sass)}))
+                      "sass": sass_digests(sass), "ptxas": ptxas}))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="plonky2_tpu_torch.tools.kernel_turns")
-    ap.add_argument("--tree", help="root of another checkout (tree 1)")
+    ap.add_argument("--tree", action="append", default=[],
+                    help="root of another checkout (trees 1, 2, ...)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
@@ -162,8 +178,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("kernel_turns: needs a CUDA device", file=sys.stderr)
         return 2
-    trees = [REPO] + ([Path(args.tree).resolve()] if args.tree else [])
-    order = [0, 1, 1, 0] if args.tree else [0]
+    trees = [REPO] + [Path(t).resolve() for t in args.tree]
+    order = turn_order(len(trees))
     runs = []
     for i in order:
         proc = subprocess.run(

@@ -1,6 +1,9 @@
 """``tools/kernel_turns``'s host side: the SASS digest keeps each kernel's
 instructions apart and ignores addresses and encodings, the summary averages
-each tree's turns and divides by tree 0, and without a GPU the tool exits 2."""
+each tree's turns and divides by tree 0, the trees take turns 0, 1, ..., k,
+k, ..., 1, 0, and without a GPU the tool exits 2."""
+import pytest
+
 from plonky2_tpu_torch.tools import kernel_turns as kt
 
 SASS = """
@@ -34,6 +37,12 @@ def test_summarize_averages_turns_and_divides_by_tree_0():
     got = kt.summarize(runs)
     assert got[0]["ms"] == {"a": 2.0} and got[1]["ms"] == {"a": 5.0}
     assert got[1]["over_tree_0"] == {"a": 2.5}
+
+
+@pytest.mark.parametrize("n_trees, order", [
+    (1, [0]), (2, [0, 1, 1, 0]), (3, [0, 1, 2, 2, 1, 0])])
+def test_turn_order_puts_every_tree_on_both_sides(n_trees, order):
+    assert kt.turn_order(n_trees) == order
 
 
 def test_main_without_a_gpu_exits_2(monkeypatch):

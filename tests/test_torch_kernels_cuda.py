@@ -67,7 +67,11 @@ def test_poseidon_bn254_kernel_rejects_other_dtypes(dev):
         kb.permute(torch.zeros((2, 4, 16), dtype=torch.int32, device=dev))
 
 
-@pytest.mark.parametrize("shape", [(1,), (3, 2), (1000,)])
+# The CIOS kernel's blocks own 32 lanes of 4 threads each: lane counts off
+# that tile and off kernel A's, and the main path's two launch sizes, 7168
+# (leaf scans, FRI layers) and 28672 (Merkle levels), plus one.
+@pytest.mark.parametrize("shape", [(1,), (31,), (33,), (63,), (65,), (3, 2),
+                                   (1000,), (7168,), (28673,)])
 def test_poseidon_bn254_cios_kernel_matches_plain(dev, shape):
     st = _bn_states(shape, seed=len(shape) * 2000 + shape[0]).to(dev)
     before = kc.permute.launches
@@ -76,6 +80,22 @@ def test_poseidon_bn254_cios_kernel_matches_plain(dev, shape):
     want = kc.permute_plain(st)
     torch.cuda.synchronize()
     assert got.shape == st.shape and torch.equal(got, want)
+
+
+def test_poseidon_bn254_cios_kernel_takes_strided_input(dev):
+    st = _bn_states((40, 25), seed=13).to(dev).transpose(0, 1)
+    assert not st.is_contiguous()
+    assert torch.equal(kc.permute(st), kc.permute_plain(st.contiguous()))
+
+
+@pytest.mark.parametrize("edge", [0, 1, bn254.P - 1, 2])
+def test_poseidon_bn254_cios_kernel_edge_values(dev, edge):
+    """0, 1, p-1 and 2 in every element of a lane, beside a lane holding
+    all four (the first state of ``_bn_states``)."""
+    st = _bn_states((3,), seed=17)
+    st[1] = torch.as_tensor([bn254.int_to_limbs(edge)] * 4)
+    st = st.to(dev)
+    assert torch.equal(kc.permute(st), kc.permute_plain(st))
 
 
 def test_poseidon_bn254_cios_kernel_rejects_other_dtypes(dev):
