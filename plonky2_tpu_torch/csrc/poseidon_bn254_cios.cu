@@ -97,6 +97,13 @@ constexpr int OFF_PART_C = OFF_P + 16;                   // [56]
 constexpr int OFF_S_ROW = OFF_PART_C + PARTIAL;          // [56][4]
 constexpr int OFF_S_COL = OFF_S_ROW + PARTIAL * 4;       // [56][3]
 constexpr int N_CONST = OFF_S_COL + PARTIAL * 3;
+// Constants the block derives into shared memory at its start, after the
+// wrapper's: row_0 c (a partial round's row coefficient of s0 times its
+// round constant) and col_k c, so that c is added after the products.
+constexpr int OFF_ROW_C = N_CONST;                       // [56]
+constexpr int OFF_COL_C = OFF_ROW_C + PARTIAL;           // [56][3]
+constexpr int OFF_ZERO = OFF_COL_C + PARTIAL * 3;        // [1]
+constexpr int N_SHARED = OFF_ZERO + 1;
 
 constexpr int G = WIDTH;               // threads a lane, thread e = element e
 constexpr int LANES = 32;              // lanes a block
@@ -129,6 +136,35 @@ __device__ __forceinline__ Fe select(bool c, const Fe& a, const Fe& b) {
 #pragma unroll
   for (int k = 0; k < NW; ++k) r.w[k] = c ? a.w[k] : b.w[k];
   return r;
+}
+
+// Two independent products t = a b / 2^256 + k p, u = c d / 2^256 + k' p,
+// their rows interleaved.
+__device__ __forceinline__ void mont2(u32 (&t)[ACC], const Fe& a, const Fe& b,
+                                      u32 (&u)[ACC], const Fe& c, const Fe& d) {
+  zero(t);
+  zero(u);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    mac_row_wide(t, a.w[i], b);
+    mac_row_wide(u, c.w[i], d);
+    reduce_step(t);
+    reduce_step(u);
+  }
+}
+
+// 4p, little-endian 32-bit words.
+__device__ __forceinline__ Fe fe_4p() {
+  return Fe{{0xc0000004u, 0x0f87d64fu, 0xe6e5c245u, 0xa0cfa121u,
+             0x06056174u, 0xe14116dau, 0x84c680a6u, 0xc19139cbu}};
+}
+
+// x less m if x >= m, else x.
+__device__ __forceinline__ Fe sub_if(const Fe& x, const Fe& m) {
+  u32 t[ACC];
+  zero(t);
+  add_fold(t, x);
+  return cond_sub(t, m);
 }
 
 // a + b for a + b < 4p, less 2p if at least 2p: below 2p.
@@ -173,9 +209,23 @@ __global__ void __launch_bounds__(THREADS)
 poseidon_bn254_cios_kernel(const long long* __restrict__ in,
                            long long* __restrict__ out,
                            const u32* __restrict__ consts, int n) {
-  __shared__ __align__(16) u32 kC[N_CONST * NW];
+  __shared__ __align__(16) u32 kC[N_SHARED * NW];
   for (int q = threadIdx.x; q < N_CONST * NW / 4; q += THREADS)
     reinterpret_cast<uint4*>(kC)[q] = __ldg(reinterpret_cast<const uint4*>(consts) + q);
+  __syncthreads();
+  for (int q = threadIdx.x; q < N_SHARED - N_CONST; q += THREADS) {
+    u32 t[ACC];
+    zero(t);
+    if (q < PARTIAL) {
+      mont(t, load_const(kC, OFF_S_ROW + q * WIDTH), load_const(kC, OFF_PART_C + q));
+    } else if (q < PARTIAL * WIDTH) {
+      const int r = (q - PARTIAL) / (WIDTH - 1);
+      mont(t, load_const(kC, OFF_S_COL + q - PARTIAL), load_const(kC, OFF_PART_C + r));
+    }
+    // below 1.19p; the last one is 0
+#pragma unroll
+    for (int k = 0; k < NW; ++k) kC[(N_CONST + q) * NW + k] = t[k];
+  }
   __syncthreads();
 
   const int e = threadIdx.x % G;
@@ -198,31 +248,46 @@ poseidon_bn254_cios_kernel(const long long* __restrict__ in,
     s = full_round(s, kC, OFF_ARK_FIRST + r * WIDTH + e,
                    r == HALF_FULL - 1 ? OFF_P : OFF_M, e);
 
+  // Partial rounds.  Round r: s0' = row_0 x^5 + rest, with
+  // rest = row_0 c + sum_(j>0) row_j s_j summed over the group, and
+  // x^5 row_0 = x^4 (x row_0); s_e' = s_e + col_e x^5 + col_e c for e > 0,
+  // whose product waits for round r + 1, beside that round's squarings.  So
+  // the chain from s0 to s0' is two squarings, one product and an addition.
   Fe s0 = shfl(s, 0);
-  const int col = OFF_S_COL + (e == 0 ? 0 : e - 1);  // thread 0's is unused
+  Fe x5 = Fe{{0, 0, 0, 0, 0, 0, 0, 0}};  // round r - 1's x^5, 0 before round 0
+  int col_c = OFF_ZERO;                  // round r - 1's col_e c
+  const int ecol = e == 0 ? 0 : e - 1;   // thread 0's column terms are unused
 #pragma unroll 1
   for (int r = 0; r < PARTIAL; ++r) {
-    const Fe x5 = exp5_ark(s0, load_const(kC, OFF_PART_C + r));
-    const Fe a = select(e == 0, x5, s);
-    const Fe c_row = load_const(kC, OFF_S_ROW + r * WIDTH + e);
-    const Fe c_col = load_const(kC, col + r * (WIDTH - 1));
-    u32 t_row[ACC], t_col[ACC];
-    zero(t_row);
-    zero(t_col);
-#pragma unroll
-    for (int i = 0; i < NW; ++i) {
-      mac_row_wide(t_row, a.w[i], c_row);
-      mac_row_wide(t_col, x5.w[i], c_col);
-      reduce_step(t_row);
-      reduce_step(t_col);
-    }
-    add_fold(t_col, s);  // s_e + x5 col_e: below 3.38p
-    const Fe sk = cond_sub(t_col, fe_2p());
-    Fe v = low(t_row);   // row_e s_e: below 1.38p
+    const int col = OFF_S_COL + (r == 0 ? 0 : r - 1) * (WIDTH - 1) + ecol;
+    u32 t_xr[ACC], t_s[ACC];
+    mont2(t_xr, s0, load_const(kC, OFF_S_ROW + r * WIDTH),  // x row_0
+          t_s, x5, load_const(kC, col));                    // x5 col_e
+    const Fe x2 = sqr(s0);
+    add_fold(t_s, s);
+    add_fold(t_s, load_const(kC, col_c));  // below 4.57p
+    s = sub_if(cond_sub(t_s, fe_4p()), fe_2p());
+    const Fe x4 = sqr(x2);
+    u32 t_row[ACC];
+    mont(t_row, s, load_const(kC, OFF_S_ROW + r * WIDTH + e));  // below 1.38p
+    Fe v = select(e == 0, load_const(kC, OFF_ROW_C + r), low(t_row));
     v = add_2p(v, shfl_xor(v, 1));
-    v = add_2p(v, shfl_xor(v, 2));
-    s0 = v;
-    s = select(e == 0, v, sk);
+    v = add_2p(v, shfl_xor(v, 2));  // rest, below 2p
+    const Fe xr = low(t_xr);  // below 1.38p
+    u32 t_u[ACC], t_x5[ACC];
+    mont2(t_u, x4, xr, t_x5, x4, s0);  // x^5 row_0 < 1.46p, x^5 < 1.67p
+    x5 = low(t_x5);
+    add_fold(t_u, v);                          // below 3.46p
+    s0 = cond_sub(t_u, fe_2p());
+    col_c = OFF_COL_C + r * (WIDTH - 1) + ecol;
+  }
+  {
+    const int col = OFF_S_COL + (PARTIAL - 1) * (WIDTH - 1) + ecol;
+    mont(t, x5, load_const(kC, col));
+    add_fold(t, s);
+    add_fold(t, load_const(kC, col_c));
+    s = sub_if(cond_sub(t, fe_4p()), fe_2p());
+    s = select(e == 0, s0, s);
   }
 
 #pragma unroll 1
