@@ -205,7 +205,7 @@ __device__ __forceinline__ Fe full_round(const Fe& s, const u32* c, int ark,
   return cond_sub(t, fe_2p());  // below 2.52p before
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 7)
 poseidon_bn254_cios_kernel(const long long* __restrict__ in,
                            long long* __restrict__ out,
                            const u32* __restrict__ consts, int n) {
