@@ -1,76 +1,83 @@
 // Poseidon-BN254 permutation (width 4, x^5, 8 full + 56 partial rounds) for
-// Hopper (sm_90a): the CIOS variant, a group of four threads per lane.
+// Hopper (sm_90a): the CIOS variant, a group of four threads per lane, on
+// 29-bit limbs with 64-bit column sums.
 //
 // Replaces the Pallas TPU kernel plonky2_tpu/kernels/poseidon_bn254_pallas.py
 // (permute / permute_lanes -> _kernel, with _multi_cios, _exp5_ark, _carry and
-// _cond_sub), which ran the permutation on the TPU's vector units in a relaxed
-// [0, 2p) domain with fused multi-product Montgomery passes.  The port selects
-// it with PLONKY2_TPU_PB_IMPL=cios; kernel A (poseidon_bn254.cu) is the
-// default.  Canonical Montgomery state in, canonical state out, bit-exact with
-// the torch plain version (hash/poseidon_bn254.permute_plain).
+// _cond_sub), which ran the permutation on the TPU's vector units with 16-bit
+// limbs in 32-bit columns, carries deferred, and fused multi-product
+// Montgomery passes.  The port selects it with PLONKY2_TPU_PB_IMPL=cios;
+// kernel A (poseidon_bn254.cu) is the default.  Canonical Montgomery state
+// in, canonical state out, bit-exact with the torch plain version
+// (hash/poseidon_bn254.permute_plain).
 //
 // What bounds it on the H100: 32-bit integer multiply-adds (IMAD, 64 a clock
-// on each of the 132 SMs).  A 256-bit product or a Montgomery reduction is
-// 8 x 8 word products, lo and hi (128 IMADs), a squaring 36 (72 IMADs); a
-// lane reads and writes 1 KB, which is negligible beside that.  Hopper has no
-// 64-bit integer multiplier, so the words are 32 bits.  The main path
-// launches it at 7168 lanes (51 launches a step batch: leaf scans and FRI
-// layers) and at 28672 (12: the Merkle chains of four oracles at once).  One
-// thread a lane leaves 7168 lanes at 1.7 warps an SM, so the time is one
-// thread's serial chain of products, not the IMAD rate.
+// on each of the 132 SMs); a lane reads and writes 1 KB, which is negligible
+// beside that.  The main path launches it at 7168 lanes (51 launches a step
+// batch: leaf scans and FRI layers) and at 28672 (12: the Merkle levels of
+// four oracles at once).  One thread a lane leaves 7168 lanes at 1.7 warps an
+// SM, so there the time is one thread's chain of dependent operations.
 //
 // The design:
+// - the TPU kernel's idea at the GPU's widths: a field element is 9 limbs
+//   of 29 bits, and a product sums a_i b_j (< 2^58) into 17 64-bit columns,
+//   each term one IMAD.WIDE (32 x 32 + 64 bits) with no carry between
+//   columns; a Montgomery reduction by R' = 2^261 then runs limb by limb,
+//   and one carry pass normalises the result.  Products of 32-bit words
+//   (CIOS rows of 64-bit multiply-adds) cost 4 to 5 instructions a word
+//   product, most of them carry handling, in one long dependent chain
+//   (PERF.md, §6);
+// - R' = 2^261 leaves so much room above p (p / R' < 0.006) that no value
+//   needs a conditional subtraction until the end: a product of a and b is
+//   below a b / R' + p.  The kernel's domain is x R' mod p: the input's
+//   Montgomery form (R = 2^256) times 32, a shift; the constants arrive as
+//   c 32 mod p (kernels/poseidon_bn254_cios.const_limbs); at the end one
+//   product by 2^256 mod p divides by 32, and one subtraction of p makes the
+//   value canonical;
 // - a group of G = 4 neighbouring threads owns a lane; thread e holds state
-//   element e as 8 x 32-bit words in registers.  A block is 32 lanes (128
-//   threads), so 7168 lanes are 224 blocks of 4 warps;
-// - full round: each thread computes its own element's S-box; the group
-//   exchanges the four results (__shfl_sync within the group) and thread i
-//   computes output i of the linear layer as one fused pass over four
-//   products, sharing one reduction per word;
-// - partial round: every thread computes x = s0^5 + c itself (the threads of
+//   element e.  A block is 32 lanes (128 threads): 7168 lanes are 224 blocks,
+//   6.8 warps an SM;
+// - full round: each thread computes its own element's S-box (x^2 and x^4 as
+//   squarings, 45 column products each), the group exchanges the four
+//   results (__shfl_sync within the group) and thread i computes output i of
+//   the linear layer as one pass: four products into the same columns, one
+//   reduction;
+// - partial round: every thread computes y = s0^5 + c itself (the threads of
 //   a warp issue together, so a lone thread would cost the same), then
-//   thread j computes row_j s_j (s_0 = x) and, for j > 0, s_j + x col_j, two
-//   independent products interleaved; the four row terms are summed by two
-//   shuffle-xor steps, so every thread holds the new s0.  A partial round's
-//   chain is the S-box's three products and then two interleaved products,
-//   not 3 + 7 on one thread;
-// - rows are 64-bit multiply-adds and x^2, x^4 dedicated squarings
-//   (bn254_mont.cuh, shared with kernel A);
-// - the 516 round constants (16.5 KB) are copied into shared memory once a
-//   block from the wrapper's device buffer; the four threads of a group read
-//   four different elements, 8 words apart, so four banks, no conflict;
+//   thread j computes row_j s_j (s_0 = y) and, for j > 0, s_j + y col_j, two
+//   independent products; the four row terms are summed by two shuffle-xor
+//   steps on the limbs and one carry pass, so every thread holds the new s0;
+// - the 516 round constants (18.6 KB as limbs) are copied into shared memory
+//   once a block; the four threads of a group read four elements 9 words
+//   apart, four banks, no conflict;
 // - thread e reads and writes only its element's 16 limbs (128 contiguous
 //   bytes), so a warp's loads cover 4 KB without gaps.  Lanes past n repeat
 //   lane n - 1 and store nothing, so every group takes part in the shuffles.
 //
-// Exactness: values stay in the relaxed domain [0, 2p) between rounds and
-// every accumulator holds its largest value (p < 0.19 * 2^256; c < p is a
-// constant, a, b < 2p state values; tests/test_torch_cios_words.py models
-// the words and asserts each bound):
-// - a CIOS row t += a_i b then t += m p leaves t < 2^32 (b + p) before the
-//   word shift, below 3 * 2^32 p < 2^288 for b < 2p: the ACC = 10 words hold
-//   it; a fused pass over four products c_j y_j (multiplier words from the
-//   constants, y_j < 2p) stays below 2^32 (8p + p) < 2^289;
-// - a product's result t = (a b + m p) / 2^256 < a b / 2^256 + p: below
-//   1.76p for a, b < 2p (x^5 = x^4 x), below 1.38p for a < 2p by c < p (a
-//   partial round's row and column terms), below 2.52p for a fused pass of
-//   four (one subtraction of 2p makes it < 2p);
-// - a squaring's 16-word product r = x^2 < 4p^2 < 2^512; its reduction keeps
-//   r + h 2^(32(i+9)) <= x^2 + (2^256 - 1) p < 2^512, so h ends 0 and the
-//   result is below 1.76p;
-// - x^5 + c < 2.76p, one subtraction of 2p: < 2p; s_j + x col_j < 3.38p,
-//   one subtraction: < 2p;
-// - the new s0, sum of four row terms each < 1.38p: the first shuffle step
-//   adds two (< 2.76p) and subtracts 2p if it can (< 2p), the second adds
-//   two of those (< 4p < 2^256) and subtracts 2p again (< 2p).  Summing all
-//   four first (< 5.52p, past 2^256) would need a ninth word and two
-//   subtractions in a row;
-// - ark0 + a canonical input < 2p; the output subtracts p once.
+// Exactness (tests/test_torch_cios_words.py models the limbs and asserts
+// each bound; p < 2^261 / 169):
+// - every operand of a product has limbs below 2^29, so a_i b_j < 2^58; a
+//   column takes at most 9 terms of a product and 9 of the reduction's m p,
+//   below 18 * 2^58 + 2^36 < 2^63; the linear layer's pass, four products
+//   and the reduction, 45 terms, below 45 * 2^58 + 2^36 < 2^64; a squaring's
+//   doubled terms (2 a_i) a_j < 2^59 take the place of two terms each;
+// - a product's value (a b + m p) / 2^261 < a b / 2^261 + p with
+//   m < 2^261; additive terms (a round constant, s_j) join the columns
+//   before the carry pass;
+// - the state stays below 58p < 2^260: the input times 32 plus ark0 is
+//   below 33p; an S-box's output below 1.3p, plus c below 2.3p; a
+//   linear-layer output below 1.08p; a partial round's row terms below 1.35p
+//   each, so s0 < 5.1p; s_j (j > 0) grows by y col_j < 1.02p a partial
+//   round, from below 1.08p to below 58p; so the top limb of a normalised
+//   value fits 29 bits;
+// - the four row terms' limb sums are below 2^31 before their carry pass;
+// - the output: the state (< 1.08p) times 2^256 mod p over 2^261 is below
+//   1.01p, and one subtraction of p makes it canonical.
 //
 // What still holds it back (PERF.md, §6): the partial rounds' S-box is three
-// dependent products that all four threads of a group repeat, so a lane
-// issues about 1.8 times the IMADs of the one-thread form; at 28672 lanes
-// the card has the warps to hide latency and pays for that.
+// dependent products that all four threads of a group repeat, so at 28672
+// lanes, where the card has the warps to hide latency, a lane issues about
+// 1.5 times the products of the one-thread form.
 //
 // ptxas -v (sm_90a, nvcc 12.9, printed by chip_smoke.py on the H100):
 // not yet measured.
@@ -78,9 +85,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bn254_mont.cuh"
-
 namespace {
+
+typedef uint32_t u32;
+typedef unsigned long long u64;
 
 constexpr int WIDTH = 4;
 constexpr int HALF_FULL = 4;
@@ -97,211 +105,245 @@ constexpr int OFF_PART_C = OFF_P + 16;                   // [56]
 constexpr int OFF_S_ROW = OFF_PART_C + PARTIAL;          // [56][4]
 constexpr int OFF_S_COL = OFF_S_ROW + PARTIAL * 4;       // [56][3]
 constexpr int N_CONST = OFF_S_COL + PARTIAL * 3;
-// Constants the block derives into shared memory at its start, after the
-// wrapper's: row_0 c (a partial round's row coefficient of s0 times its
-// round constant) and col_k c, so that c is added after the products.
-constexpr int OFF_ROW_C = N_CONST;                       // [56]
-constexpr int OFF_COL_C = OFF_ROW_C + PARTIAL;           // [56][3]
-constexpr int OFF_ZERO = OFF_COL_C + PARTIAL * 3;        // [1]
-constexpr int N_SHARED = OFF_ZERO + 1;
+
+constexpr int NL = 9;                  // limbs an element
+constexpr int LB = 29;                 // bits a limb
+constexpr u32 LM = (1u << LB) - 1;
+constexpr u32 kN0 = 0x0fffffffu;       // -p^-1 mod 2^29
+constexpr int IN_WORDS = 8;            // 32-bit words of an input element
 
 constexpr int G = WIDTH;               // threads a lane, thread e = element e
 constexpr int LANES = 32;              // lanes a block
 constexpr int THREADS = G * LANES;
 constexpr unsigned ALL = 0xffffffffu;  // every thread of a warp shuffles
 
-__device__ __forceinline__ Fe load_const(const u32* c, int idx) {
-  const uint4* p = reinterpret_cast<const uint4*>(c + idx * NW);
-  const uint4 lo = p[0], hi = p[1];
-  return Fe{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
+struct Fl {
+  u32 l[NL];
+};
+
+// 64-bit column sums: column k has weight 2^(29 k).
+struct Cols {
+  u64 c[2 * NL];
+};
+
+// p and 2^256 mod p in 29-bit limbs.
+__device__ __forceinline__ Fl fl_p() {
+  return Fl{{0x10000001u, 0x1f0fac9fu, 0x0e5c2450u, 0x07d090f3u, 0x1585d283u,
+             0x02db40c0u, 0x00a6e141u, 0x0e5c2634u, 0x0030644eu}};
+}
+__device__ __forceinline__ Fl fl_r_mod_p() {
+  return Fl{{0x0ffffffbu, 0x04b1a0e2u, 0x18334a6bu, 0x18ed2b3eu, 0x1462e36fu,
+             0x11b7bc3cu, 0x1cbd99bau, 0x183340fbu, 0x000e0a77u}};
+}
+__device__ __forceinline__ Fl fl_zero() {
+  return Fl{{0, 0, 0, 0, 0, 0, 0, 0, 0}};
+}
+
+__device__ __forceinline__ Fl load_const(const u32* c, int idx) {
+  Fl r;
+#pragma unroll
+  for (int k = 0; k < NL; ++k) r.l[k] = c[idx * NL + k];
+  return r;
+}
+
+__device__ __forceinline__ void zero(Cols& t) {
+#pragma unroll
+  for (int k = 0; k < 2 * NL; ++k) t.c[k] = 0;
+}
+
+// t += a b.
+__device__ __forceinline__ void mul_add(Cols& t, const Fl& a, const Fl& b) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i)
+#pragma unroll
+    for (int j = 0; j < NL; ++j) t.c[i + j] += (u64)a.l[i] * b.l[j];
+}
+
+// t += a^2: the cross terms once, by 2 a_i (< 2^30).
+__device__ __forceinline__ void sqr_add(Cols& t, const Fl& a) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    t.c[2 * i] += (u64)a.l[i] * a.l[i];
+    const u32 d = a.l[i] << 1;
+#pragma unroll
+    for (int j = i + 1; j < NL; ++j) t.c[i + j] += (u64)d * a.l[j];
+  }
+}
+
+// (t + m p) / 2^261 + add, normalised, for the m < 2^261 that clears the low
+// 261 bits: one reduction step a limb, then one carry pass.
+__device__ __forceinline__ Fl redc(Cols& t, const Fl& add) {
+  const Fl p = fl_p();
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const u32 m = ((u32)t.c[i] * kN0) & LM;
+#pragma unroll
+    for (int j = 0; j < NL; ++j) t.c[i + j] += (u64)m * p.l[j];
+    t.c[i + 1] += t.c[i] >> LB;  // t.c[i] is a multiple of 2^29 now
+  }
+#pragma unroll
+  for (int k = 0; k < NL; ++k) t.c[NL + k] += add.l[k];
+  Fl r;
+#pragma unroll
+  for (int k = NL; k < 2 * NL - 1; ++k) {
+    t.c[k + 1] += t.c[k] >> LB;
+    r.l[k - NL] = (u32)t.c[k] & LM;
+  }
+  r.l[NL - 1] = (u32)t.c[2 * NL - 1];
+  return r;
+}
+
+// a b / 2^261 + k p + add.
+__device__ __forceinline__ Fl mont(const Fl& a, const Fl& b, const Fl& add) {
+  Cols t;
+  zero(t);
+  mul_add(t, a, b);
+  return redc(t, add);
+}
+
+__device__ __forceinline__ Fl msqr(const Fl& a) {
+  Cols t;
+  zero(t);
+  sqr_add(t, a);
+  return redc(t, fl_zero());
+}
+
+// x^5 + c.
+__device__ __forceinline__ Fl exp5_add(const Fl& x, const Fl& c) {
+  return mont(msqr(msqr(x)), x, c);
 }
 
 // Element x of thread src of this thread's group.
-__device__ __forceinline__ Fe shfl(const Fe& x, int src) {
-  Fe r;
+__device__ __forceinline__ Fl shfl(const Fl& x, int src) {
+  Fl r;
 #pragma unroll
-  for (int k = 0; k < NW; ++k) r.w[k] = __shfl_sync(ALL, x.w[k], src, G);
+  for (int k = 0; k < NL; ++k) r.l[k] = __shfl_sync(ALL, x.l[k], src, G);
   return r;
 }
 
-__device__ __forceinline__ Fe shfl_xor(const Fe& x, int mask) {
-  Fe r;
+// x plus the x of the group's thread whose index differs by mask, limb by
+// limb.
+__device__ __forceinline__ Fl add_xor(const Fl& x, int mask) {
+  Fl r;
 #pragma unroll
-  for (int k = 0; k < NW; ++k) r.w[k] = __shfl_xor_sync(ALL, x.w[k], mask, G);
+  for (int k = 0; k < NL; ++k)
+    r.l[k] = x.l[k] + __shfl_xor_sync(ALL, x.l[k], mask, G);
   return r;
 }
 
-__device__ __forceinline__ Fe select(bool c, const Fe& a, const Fe& b) {
-  Fe r;
+// Limbs below 2^32 -> limbs below 2^29, the value unchanged (below 2^261).
+__device__ __forceinline__ Fl carry(const Fl& x) {
+  Fl r;
+  u32 c = 0;
 #pragma unroll
-  for (int k = 0; k < NW; ++k) r.w[k] = c ? a.w[k] : b.w[k];
-  return r;
-}
-
-// Two independent products t = a b / 2^256 + k p, u = c d / 2^256 + k' p,
-// their rows interleaved.
-__device__ __forceinline__ void mont2(u32 (&t)[ACC], const Fe& a, const Fe& b,
-                                      u32 (&u)[ACC], const Fe& c, const Fe& d) {
-  zero(t);
-  zero(u);
-#pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    mac_row_wide(t, a.w[i], b);
-    mac_row_wide(u, c.w[i], d);
-    reduce_step(t);
-    reduce_step(u);
+  for (int k = 0; k < NL - 1; ++k) {
+    const u64 v = (u64)x.l[k] + c;
+    r.l[k] = (u32)v & LM;
+    c = (u32)(v >> LB);
   }
+  r.l[NL - 1] = x.l[NL - 1] + c;
+  return r;
 }
 
-// 4p, little-endian 32-bit words.
-__device__ __forceinline__ Fe fe_4p() {
-  return Fe{{0xc0000004u, 0x0f87d64fu, 0xe6e5c245u, 0xa0cfa121u,
-             0x06056174u, 0xe14116dau, 0x84c680a6u, 0xc19139cbu}};
+__device__ __forceinline__ Fl select(bool c, const Fl& a, const Fl& b) {
+  Fl r;
+#pragma unroll
+  for (int k = 0; k < NL; ++k) r.l[k] = c ? a.l[k] : b.l[k];
+  return r;
 }
 
-// x less m if x >= m, else x.
-__device__ __forceinline__ Fe sub_if(const Fe& x, const Fe& m) {
-  u32 t[ACC];
-  zero(t);
-  add_fold(t, x);
-  return cond_sub(t, m);
-}
-
-// a + b for a + b < 4p, less 2p if at least 2p: below 2p.
-__device__ __forceinline__ Fe add_2p(const Fe& a, const Fe& b) {
-  u32 t[ACC];
-  zero(t);
-  add_fold(t, a);
-  add_fold(t, b);
-  return cond_sub(t, fe_2p());
-}
-
-// x^5 + ark for x < 2p; below 2p.
-__device__ __forceinline__ Fe exp5_ark(const Fe& x, const Fe& ark) {
-  const Fe x4 = sqr(sqr(x));
-  u32 t[ACC];
-  mont(t, x4, x);    // below 1.76p
-  add_fold(t, ark);  // below 2.76p
-  return cond_sub(t, fe_2p());
-}
-
-// Full round for this thread's element e: the S-box, then output e of the
-// linear layer sum_j M[j][e] y_j (M at off, [j][i]) as one fused pass; < 2p.
-__device__ __forceinline__ Fe full_round(const Fe& s, const u32* c, int ark,
+// Full round for this thread's element e: the S-box plus its constant, then
+// output e of the linear layer sum_j M[j][e] y_j (M at off, [j][i]).
+__device__ __forceinline__ Fl full_round(const Fl& s, const u32* c, int ark,
                                          int off, int e) {
-  const Fe y = exp5_ark(s, load_const(c, ark));
-  Fe ys[WIDTH];
-#pragma unroll
-  for (int j = 0; j < WIDTH; ++j) ys[j] = shfl(y, j);
-  u32 t[ACC];
+  const Fl y = exp5_add(s, load_const(c, ark));
+  Cols t;
   zero(t);
 #pragma unroll
-  for (int i = 0; i < NW; ++i) {
-#pragma unroll
-    for (int j = 0; j < WIDTH; ++j)
-      mac_row_wide(t, c[(off + j * WIDTH + e) * NW + i], ys[j]);
-    reduce_step(t);
-  }
-  return cond_sub(t, fe_2p());  // below 2.52p before
+  for (int j = 0; j < WIDTH; ++j)
+    mul_add(t, load_const(c, off + j * WIDTH + e), shfl(y, j));
+  return redc(t, fl_zero());
 }
 
-__global__ void __launch_bounds__(THREADS, 7)
+__global__ void __launch_bounds__(THREADS)
 poseidon_bn254_cios_kernel(const long long* __restrict__ in,
                            long long* __restrict__ out,
                            const u32* __restrict__ consts, int n) {
-  __shared__ __align__(16) u32 kC[N_SHARED * NW];
-  for (int q = threadIdx.x; q < N_CONST * NW / 4; q += THREADS)
+  __shared__ __align__(16) u32 kC[N_CONST * NL];
+  for (int q = threadIdx.x; q < N_CONST * NL / 4; q += THREADS)
     reinterpret_cast<uint4*>(kC)[q] = __ldg(reinterpret_cast<const uint4*>(consts) + q);
-  __syncthreads();
-  for (int q = threadIdx.x; q < N_SHARED - N_CONST; q += THREADS) {
-    u32 t[ACC];
-    zero(t);
-    if (q < PARTIAL) {
-      mont(t, load_const(kC, OFF_S_ROW + q * WIDTH), load_const(kC, OFF_PART_C + q));
-    } else if (q < PARTIAL * WIDTH) {
-      const int r = (q - PARTIAL) / (WIDTH - 1);
-      mont(t, load_const(kC, OFF_S_COL + q - PARTIAL), load_const(kC, OFF_PART_C + r));
-    }
-    // below 1.19p; the last one is 0
-#pragma unroll
-    for (int k = 0; k < NW; ++k) kC[(N_CONST + q) * NW + k] = t[k];
-  }
   __syncthreads();
 
   const int e = threadIdx.x % G;
   const int want = blockIdx.x * LANES + threadIdx.x / G;
   const int lane = min(want, n - 1);
   const long long* src = in + ((size_t)lane * WIDTH + e) * 16;
-  Fe x;
+  u32 w[IN_WORDS + 1];
 #pragma unroll
-  for (int k = 0; k < NW; ++k)
-    x.w[k] = (u32)src[2 * k] | ((u32)src[2 * k + 1] << 16);
-  // canonical + canonical < 2p: stays in the relaxed domain
-  u32 t[ACC];
-  zero(t);
-  add_fold(t, x);
-  add_fold(t, load_const(kC, OFF_ARK0 + e));
-  Fe s = low(t);
+  for (int k = 0; k < IN_WORDS; ++k)
+    w[k] = (u32)src[2 * k] | ((u32)src[2 * k + 1] << 16);
+  w[IN_WORDS] = 0;
+  // x 2^256 -> x 2^261 (< 32p): limb i is bits 29 i - 5 .. 29 i + 23 of the
+  // input
+  Fl s;
+  s.l[0] = (w[0] << 5) & LM;
+#pragma unroll
+  for (int i = 1; i < NL; ++i) {
+    const int q = LB * i - 5;
+    const u64 v = (u64)w[q / 32] | ((u64)w[q / 32 + 1] << 32);
+    s.l[i] = (u32)(v >> (q % 32)) & LM;
+  }
+  {
+    const Fl a = load_const(kC, OFF_ARK0 + e);
+#pragma unroll
+    for (int k = 0; k < NL; ++k) s.l[k] += a.l[k];
+    s = carry(s);  // below 33p
+  }
 
 #pragma unroll 1
   for (int r = 0; r < HALF_FULL; ++r)
     s = full_round(s, kC, OFF_ARK_FIRST + r * WIDTH + e,
                    r == HALF_FULL - 1 ? OFF_P : OFF_M, e);
 
-  // Partial rounds.  Round r: s0' = row_0 x^5 + rest, with
-  // rest = row_0 c + sum_(j>0) row_j s_j summed over the group, and
-  // x^5 row_0 = x^4 (x row_0); s_e' = s_e + col_e x^5 + col_e c for e > 0,
-  // whose product waits for round r + 1, beside that round's squarings.  So
-  // the chain from s0 to s0' is two squarings, one product and an addition.
-  Fe s0 = shfl(s, 0);
-  Fe x5 = Fe{{0, 0, 0, 0, 0, 0, 0, 0}};  // round r - 1's x^5, 0 before round 0
-  int col_c = OFF_ZERO;                  // round r - 1's col_e c
-  const int ecol = e == 0 ? 0 : e - 1;   // thread 0's column terms are unused
+  Fl s0 = shfl(s, 0);
+  const int col = OFF_S_COL + (e == 0 ? 0 : e - 1);  // thread 0's is unused
 #pragma unroll 1
   for (int r = 0; r < PARTIAL; ++r) {
-    const int col = OFF_S_COL + (r == 0 ? 0 : r - 1) * (WIDTH - 1) + ecol;
-    u32 t_xr[ACC], t_s[ACC];
-    mont2(t_xr, s0, load_const(kC, OFF_S_ROW + r * WIDTH),  // x row_0
-          t_s, x5, load_const(kC, col));                    // x5 col_e
-    const Fe x2 = sqr(s0);
-    add_fold(t_s, s);
-    add_fold(t_s, load_const(kC, col_c));  // below 4.57p
-    s = sub_if(cond_sub(t_s, fe_4p()), fe_2p());
-    const Fe x4 = sqr(x2);
-    u32 t_row[ACC];
-    mont(t_row, s, load_const(kC, OFF_S_ROW + r * WIDTH + e));  // below 1.38p
-    Fe v = select(e == 0, load_const(kC, OFF_ROW_C + r), low(t_row));
-    v = add_2p(v, shfl_xor(v, 1));
-    v = add_2p(v, shfl_xor(v, 2));  // rest, below 2p
-    const Fe xr = low(t_xr);  // below 1.38p
-    u32 t_u[ACC], t_x5[ACC];
-    mont2(t_u, x4, xr, t_x5, x4, s0);  // x^5 row_0 < 1.46p, x^5 < 1.67p
-    x5 = low(t_x5);
-    add_fold(t_u, v);                          // below 3.46p
-    s0 = cond_sub(t_u, fe_2p());
-    col_c = OFF_COL_C + r * (WIDTH - 1) + ecol;
+    const Fl y = exp5_add(s0, load_const(kC, OFF_PART_C + r));
+    const Fl row = mont(select(e == 0, y, s),
+                        load_const(kC, OFF_S_ROW + r * WIDTH + e), fl_zero());
+    s = mont(y, load_const(kC, col + r * (WIDTH - 1)), s);
+    s0 = carry(add_xor(add_xor(row, 1), 2));
   }
-  {
-    const int col = OFF_S_COL + (PARTIAL - 1) * (WIDTH - 1) + ecol;
-    mont(t, x5, load_const(kC, col));
-    add_fold(t, s);
-    add_fold(t, load_const(kC, col_c));
-    s = sub_if(cond_sub(t, fe_4p()), fe_2p());
-    s = select(e == 0, s0, s);
-  }
+  s = select(e == 0, s0, s);
 
 #pragma unroll 1
   for (int r = 0; r < HALF_FULL; ++r)
     s = full_round(s, kC, OFF_ARK_SECOND + r * WIDTH + e, OFF_M, e);
 
   if (want >= n) return;
-  zero(t);
-  add_fold(t, s);
-  const Fe c = cond_sub(t, fe_p());  // relaxed (< 2p) -> canonical
+  // x 2^261 -> x 2^256: one product by 2^256 mod p (below 1.01p), then at
+  // most one subtraction of p
+  Fl c = mont(s, fl_r_mod_p(), fl_zero());
+  {
+    const Fl p = fl_p();
+    Fl d;
+    u32 borrow = 0;
+#pragma unroll
+    for (int k = 0; k < NL; ++k) {
+      const u32 v = c.l[k] - p.l[k] - borrow;
+      borrow = v >> 31;  // limbs < 2^29: a borrow sets the top bit
+      d.l[k] = v & LM;
+    }
+    if (!borrow) c = d;
+  }
   long long* dst = out + ((size_t)lane * WIDTH + e) * 16;
 #pragma unroll
-  for (int k = 0; k < 16; ++k)
-    dst[k] = (long long)((c.w[k / 2] >> (16 * (k % 2))) & 0xFFFFu);
+  for (int k = 0; k < 16; ++k) {
+    const int q = 16 * k, i = q / LB;
+    const u64 v = (u64)c.l[i] | (i + 1 < NL ? (u64)c.l[i + 1] << LB : 0);
+    dst[k] = (long long)((v >> (q % LB)) & 0xFFFFu);
+  }
 }
 
 }  // namespace
@@ -309,8 +351,9 @@ poseidon_bn254_cios_kernel(const long long* __restrict__ in,
 extern "C" int p2t_poseidon_bn254_cios_n_const() { return N_CONST; }
 
 // in, out: (n, 4, 16) int64 Montgomery limbs, contiguous, on the device.
-// consts: N_CONST * 8 u32 words on the device, 16-byte aligned.  Returns the
-// first CUDA error, else 0.
+// consts: N_CONST x 9 u32, each element c of kernels/poseidon_bn254
+// .const_elements as the 29-bit limbs of c 32 mod p, on the device, 16-byte
+// aligned.  Returns the first CUDA error, else 0.
 extern "C" int p2t_poseidon_bn254_cios_permute(const void* in, void* out,
                                                const void* consts, int n,
                                                void* stream) {

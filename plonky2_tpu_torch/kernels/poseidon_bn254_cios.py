@@ -4,11 +4,12 @@
 Replaces the Pallas TPU kernel ``plonky2_tpu/kernels/poseidon_bn254_pallas.py``
 (``permute`` -> ``_kernel``), the all-vector-unit variant that the JAX
 package runs under ``PLONKY2_TPU_PB_IMPL=cios``; ``hash/poseidon_bn254.permute``
-selects it the same way.  The kernel runs one thread per permutation lane on
-8 x 32-bit words, with fused multi-product Montgomery passes in a relaxed
-[0, 2p) domain; it is bound by 32-bit integer multiply throughput (see the
-source's header).  It computes the same function as kernel A
-(``kernels/poseidon_bn254.py``), so its plain version is the same.
+selects it the same way.  The kernel runs a permutation lane on a group of
+four threads, one state element each, as 9 limbs of 29 bits whose products
+sum into 64-bit columns, with Montgomery reductions by 2^261; it is bound by
+32-bit integer multiply-adds (see the source's header).  It computes the
+same function as kernel A (``kernels/poseidon_bn254.py``), so its plain
+version is the same.
 
 ``permute`` launches the kernel for a CUDA tensor and raises if it cannot;
 it takes the plain version (``permute_plain``) only for a CPU tensor.
@@ -19,21 +20,42 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
+from ..fields import bn254
 from ..hash import poseidon_bn254 as pb
 from . import build
-from .poseidon_bn254 import check_state, const_words
+from .poseidon_bn254 import check_state, const_elements
 
 permute_plain = pb.permute_plain
+
+LIMBS, LIMB_BITS = 9, 29
+SHIFT = 261 - 256  # the kernel's Montgomery radix 2^261 over the port's 2^256
+
+
+def const_limbs(n_const):
+    """``const_elements()`` in the kernel's domain: each constant c (Montgomery
+    form, c = v 2^256 mod p) as c 2^5 mod p = v 2^261 mod p, in 9 little-endian
+    29-bit limbs; an (n_const * 9,) int32 array, checked against the kernel's
+    count ``n_const``."""
+    els = const_elements()
+    if els.shape[0] != n_const:
+        raise build.KernelError(
+            f"constant buffer has {els.shape[0]} elements, kernel wants {n_const}")
+    mask = (1 << LIMB_BITS) - 1
+    out = np.zeros((n_const, LIMBS), np.uint32)
+    for i, limbs in enumerate(els):
+        v = (bn254.limbs_to_int(limbs) << SHIFT) % bn254.P
+        out[i] = [(v >> (LIMB_BITS * k)) & mask for k in range(LIMBS)]
+    return out.reshape(-1).view(np.int32)
 
 
 @functools.lru_cache(maxsize=4)
 def _kernel_consts(device):
-    """Constant buffer of the kernel: 8 little-endian u32 words a field
-    element, in the kernel's OFF_* order."""
-    words = const_words(build.library().p2t_poseidon_bn254_cios_n_const())
-    return torch.from_numpy(words.copy()).to(device)
+    """Constant buffer of the kernel (``const_limbs``), in its OFF_* order."""
+    limbs = const_limbs(build.library().p2t_poseidon_bn254_cios_n_const())
+    return torch.from_numpy(limbs.copy()).to(device)
 
 
 def permute(state):
