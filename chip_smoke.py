@@ -7,10 +7,12 @@
    source, all started together);
 3. checks each kernel bit-exact against its plain torch version on the card,
    at the main path's shapes and at the shapes its tiling makes risky
-   (Poseidon-BN254: lane counts off kernel A's 64-lane tile and strided
-   input; the transcript: odd batches, on both fixtures' schedules), and
-   times it beside its plain version; the two Poseidon-BN254 kernels (A, the
-   default, and the CIOS kernel) are timed in turns (A, CIOS, CIOS, A); one
+   (Poseidon-BN254: lane counts off kernel A's 64-lane tile and the CIOS
+   kernel's tiles, either side of the CIOS kernel's switch between its two
+   kernels, and strided input; the transcript: odd batches, on both
+   fixtures' schedules), and times it beside its plain version; the two
+   Poseidon-BN254 kernels (A, the default, and the CIOS kernel) are timed in
+   turns (A, CIOS, CIOS, A) at both lane counts the main path launches; one
    dependent Goldilocks product's latency is timed for the transcript's
    latency bound; ``ptxas -v``'s report of every kernel is printed;
 4. the main path under PLONKY2_TPU_PB_IMPL=mxu: verifies 256 copies of
@@ -101,7 +103,11 @@ GL_PERM_IMADS = ((8 * 12 + 22) * (2 * 8 + 2 * 6) + (11 * 11 + 22 * 23) * 8
 # only depth 2 from the round's input).
 GL_PERM_DEPTH = 8 * 4 + 22 * 3
 NO_LIBRARY = None  # no PyTorch call computes a Poseidon permutation
-BN_LANES_RISKY = [1, 63, 65, 1000, 28673]  # off kernel A's 64-lane tile
+# Off kernel A's 64-lane tile, the CIOS group kernel's 32-lane and its lane
+# kernel's 128-lane tile, and either side of the CIOS kernel's switch from
+# the group to the lane kernel (2 warps an SM of one thread a lane: 8448
+# lanes on the H100's 132 SMs).
+BN_LANES_RISKY = [1, 31, 33, 63, 65, 1000, 8447, 8448, 28673]
 TRANSCRIPT_BATCHES = [1, 3, 17, STEP_BATCH, STEP_BATCH + 1]
 # The main path's launches: step B=256 and decode_block B=4, one Poseidon-BN254
 # launch per leaf-scan step and Merkle level, one transcript launch a batch.
@@ -203,8 +209,9 @@ def random_bn_states(n, rng):
 
 def check_bn254_kernels(dev, rng, lanes_list, timed_lanes):
     """Both Poseidon-BN254 kernels bit-exact against the plain version at
-    each lane count and on a strided input; at ``timed_lanes``, the kernels'
-    times in turns (A, CIOS, CIOS, A) and each plain version's time."""
+    each lane count and on a strided input; at each of ``timed_lanes``, the
+    kernels' times in turns (A, CIOS, CIOS, A) and each plain version's
+    time, keyed by the lane count."""
     err = {"a": 0, "cios": 0}
     cases = [random_bn_states(n, rng).to(dev) for n in lanes_list]
     cases.append(random_bn_states(1000, rng).to(dev).reshape(40, 25, 4, 16)
@@ -218,13 +225,15 @@ def check_bn254_kernels(dev, rng, lanes_list, timed_lanes):
             if not torch.equal(got, want):
                 raise AssertionError(f"poseidon_bn254 kernel {key} differs at "
                                      f"shape {tuple(st.shape)}")
-    st = random_bn_states(timed_lanes, rng).to(dev)
-    turns = [("a", kb), ("cios", kc), ("cios", kc), ("a", kb)]
-    ms = {"a": [], "cios": []}
-    for key, kernel in turns:
-        ms[key].append(cuda_ms(lambda: kernel.permute(st), 20))
-    plain = {"a": cuda_ms(lambda: kb.permute_plain(st), 2),
-             "cios": cuda_ms(lambda: kc.permute_plain(st), 2)}
+    ms, plain = {}, {}
+    for lanes in timed_lanes:
+        st = random_bn_states(lanes, rng).to(dev)
+        turns = [("a", kb), ("cios", kc), ("cios", kc), ("a", kb)]
+        ms[lanes] = {"a": [], "cios": []}
+        for key, kernel in turns:
+            ms[lanes][key].append(cuda_ms(lambda: kernel.permute(st), 20))
+        plain[lanes] = {"a": cuda_ms(lambda: kb.permute_plain(st), 2),
+                        "cios": cuda_ms(lambda: kc.permute_plain(st), 2)}
     return err, ms, plain
 
 
@@ -411,14 +420,17 @@ def main():
     spec_db_only = load_fixture(TESTDATA / "decode_block")[0]
     Q = spec_step.num_query_rounds
     lanes = [STEP_BATCH * Q, STEP_BATCH * Q * 4]  # leaf scans, Merkle paths
-    bn_lanes = sorted(lanes + BN_LANES_RISKY)
-    bn_err, bn_ms, bn_plain = check_bn254_kernels(dev, rng, bn_lanes,
-                                                  lanes[-1])
+    bn_lanes = sorted(set(lanes + BN_LANES_RISKY))
+    bn_err, bn_ms, bn_plain = check_bn254_kernels(dev, rng, bn_lanes, lanes)
+    for n in lanes:
+        t = bn_ms[n]
+        print(f"poseidon_bn254 kernels A and CIOS at {n} lanes in turns A, "
+              f"CIOS, CIOS, A: {t['a'][0]:.4f}, {t['cios'][0]:.4f}, "
+              f"{t['cios'][1]:.4f}, {t['a'][1]:.4f} ms; plain "
+              f"{bn_plain[n]['a']:.2f} and {bn_plain[n]['cios']:.2f} ms "
+              f"[{card}]")
     print(f"poseidon_bn254 kernels A and CIOS: bit-exact at {bn_lanes} lanes "
-          f"and a strided input; {lanes[-1]} lanes in turns A, CIOS, CIOS, "
-          f"A: {bn_ms['a'][0]:.4f}, {bn_ms['cios'][0]:.4f}, "
-          f"{bn_ms['cios'][1]:.4f}, {bn_ms['a'][1]:.4f} ms; plain "
-          f"{bn_plain['a']:.2f} and {bn_plain['cios']:.2f} ms [{card}]")
+          f"and a strided input")
     tr_err, tr_ms, tr_plain_ms, n_perms, tr_bytes = check_transcript_kernel(
         dev, rng, [spec_step, spec_db_only])
     print(f"transcript: bit-exact at B={TRANSCRIPT_BATCHES} on the step and "
@@ -512,6 +524,15 @@ def main():
              "--batch", str(STEP_BATCH), "--iters", "3"], card)
 
     bn_bound, bn_by, bn_form = bn254_bound(lanes[-1], rate)
+    bn_bound_small = bn254_bound(lanes[0], rate)[0]
+
+    def at_small(key):
+        # the main path's other launch size: the leaf scans' and FRI
+        # layers' lane count
+        return {"lanes": lanes[0], "ms": float(np.mean(bn_ms[lanes[0]][key])),
+                "plain_ms": bn_plain[lanes[0]][key],
+                "bound_ms": bn_bound_small}
+
     tr_bound, tr_by, tr_form = transcript_bound(n_perms, STEP_BATCH, tr_bytes,
                                                 rate, latency_s)
     kernels = [
@@ -519,17 +540,19 @@ def main():
          "source": "plonky2_tpu_torch/csrc/poseidon_bn254.cu",
          "replaces": "plonky2_tpu/kernels/poseidon_bn254_mxu.py:253",
          "launches": launches["poseidon_bn254"], "max_abs_err": bn_err["a"],
-         "ms": float(np.mean(bn_ms["a"])), "plain_ms": bn_plain["a"],
+         "lanes": lanes[-1], "ms": float(np.mean(bn_ms[lanes[-1]]["a"])),
+         "plain_ms": bn_plain[lanes[-1]]["a"],
          "bound_ms": bn_bound, "bound_by": bn_by, "bound_form": bn_form,
-         "library_ms": NO_LIBRARY},
+         "library_ms": NO_LIBRARY, "at_smaller_launch": at_small("a")},
         {"name": "poseidon_bn254_cios", "route": "cuda",
          "source": "plonky2_tpu_torch/csrc/poseidon_bn254_cios.cu",
          "replaces": "plonky2_tpu/kernels/poseidon_bn254_pallas.py:263",
          "launches": launches_c["poseidon_bn254_cios"],
          "max_abs_err": bn_err["cios"],
-         "ms": float(np.mean(bn_ms["cios"])), "plain_ms": bn_plain["cios"],
+         "lanes": lanes[-1], "ms": float(np.mean(bn_ms[lanes[-1]]["cios"])),
+         "plain_ms": bn_plain[lanes[-1]]["cios"],
          "bound_ms": bn_bound, "bound_by": bn_by, "bound_form": bn_form,
-         "library_ms": NO_LIBRARY},
+         "library_ms": NO_LIBRARY, "at_smaller_launch": at_small("cios")},
         {"name": "poseidon_gl_transcript", "route": "cuda",
          "source": "plonky2_tpu_torch/csrc/poseidon_gl_transcript.cu",
          "replaces": "plonky2_tpu/kernels/poseidon_gl_pallas.py:230",
@@ -539,7 +562,8 @@ def main():
          "library_ms": NO_LIBRARY},
     ]
     print(f"kernel bounds at the timed shapes: BN254 {lanes[-1]} lanes "
-          f"{bn_bound:.4f} ms ({bn_form}), transcript {n_perms} x "
+          f"{bn_bound:.4f} ms, {lanes[0]} lanes {bn_bound_small:.4f} ms "
+          f"({bn_form}), transcript {n_perms} x "
           f"{STEP_BATCH} permutations {tr_bound:.4f} ms ({tr_form}: "
           f"{n_perms} x {GL_PERM_DEPTH} x {latency_s * 1e9:.3f} ns) [{card}]")
     print(json.dumps({"kernels": kernels}))

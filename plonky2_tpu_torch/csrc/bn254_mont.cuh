@@ -1,18 +1,17 @@
-// BN254 scalar-field arithmetic on 8 x 32-bit words for the Poseidon-BN254
-// kernels (poseidon_bn254.cu, poseidon_bn254_cios.cu): Montgomery products
-// and reductions (R = 2^256) as CIOS over 32-bit words.
+// BN254 scalar-field arithmetic on 8 x 32-bit words for kernel A
+// (poseidon_bn254.cu): Montgomery products and reductions (R = 2^256) as CIOS
+// over 32-bit words.
 //
 // A CIOS row t += a b is 64-bit multiply-adds with the carry kept in the
 // upper half (mac_row_wide): no carry flag, so the compiler can interleave
-// independent rows.  On the H100 it ran faster than PTX carry-flag chains
-// (mad.lo.cc / madc), first in kernel A (PERF.md, §6), which this header no
-// longer has.  Kernel A's call sites still name the form (mont<true>), so
-// the template parameter stays and admits only that form.
+// independent rows; in kernel A on the H100 it ran faster than PTX
+// carry-flag chains (mad.lo.cc / madc; PERF.md, §6), which this header no
+// longer has.  Kernel A's call sites name the form (mont<true>), so the
+// template parameter stays and admits only that form.
 //
 // Values are little-endian words.  An accumulator has ACC = 10 words: the 8
-// of a field element and 2 above them, enough for four products of operands
-// below 2p by constants below p (289 bits) or a recombined byte-matrix output
-// (below 2^269) plus m p inside a reduction.
+// of a field element and 2 above them, enough for a recombined byte-matrix
+// output (below 2^269) plus m p inside a reduction.
 
 #pragma once
 
@@ -33,14 +32,10 @@ struct Fe {
   u32 w[NW];
 };
 
-// p and 2p, little-endian 32-bit words
+// p, little-endian 32-bit words
 __device__ __forceinline__ Fe fe_p() {
   return Fe{{0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
              0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u}};
-}
-__device__ __forceinline__ Fe fe_2p() {
-  return Fe{{0xe0000002u, 0x87c3eb27u, 0xf372e122u, 0x5067d090u,
-             0x0302b0bau, 0x70a08b6du, 0xc2634053u, 0x60c89ce5u}};
 }
 
 __device__ __forceinline__ void zero(u32 (&t)[ACC]) {
@@ -63,7 +58,7 @@ __device__ __forceinline__ void mac_row_wide(u32 (&t)[ACC], u32 a, const Fe& b) 
 }
 
 // One CIOS reduction: add m p so the low word is 0, then drop it.
-template <bool WIDE = true>
+template <bool WIDE>
 __device__ __forceinline__ void reduce_step(u32 (&t)[ACC]) {
   static_assert(WIDE, "only the 64-bit multiply-add row form is left");
   const u32 m = t[0] * kN0;
@@ -113,7 +108,7 @@ __device__ __forceinline__ Fe low(const u32 (&t)[ACC]) {
 
 // t = x y / 2^256 + k p for x, y < 2p: below 2p (p < 0.19 * 2^256), in
 // t[0..7].
-template <bool WIDE = true>
+template <bool WIDE>
 __device__ __forceinline__ void mont(u32 (&t)[ACC], const Fe& x, const Fe& y) {
   zero(t);
 #pragma unroll
@@ -121,64 +116,6 @@ __device__ __forceinline__ void mont(u32 (&t)[ACC], const Fe& x, const Fe& y) {
     mac_row_wide(t, x.w[i], y);
     reduce_step<WIDE>(t);
   }
-}
-
-// x^2 / 2^256 + k p for x < 2p, a Montgomery squaring in 36 word products
-// and 8 reduction steps: the 28 products x_i x_j (i < j) once into a
-// 16-word r, r doubled, the 8 squares x_i^2 added (r = x^2 < 4p^2 < 2^512),
-// then per word i, m = r_i (-p^-1) mod 2^32 and r += m p 2^(32 i) with the
-// carry out of word i + 8 kept in h (h 2^(32(i+9)) + r <= x^2 + (2^256 - 1) p
-// < 2^512, so h ends 0).  The result, r's upper 8 words, is below
-// 4p^2/2^256 + p < 1.76p.
-__device__ __forceinline__ Fe sqr(const Fe& x) {
-  u32 r[2 * NW];
-#pragma unroll
-  for (int k = 0; k < 2 * NW; ++k) r[k] = 0;
-#pragma unroll
-  for (int i = 0; i < NW - 1; ++i) {
-    u64 c = 0;
-#pragma unroll
-    for (int j = i + 1; j < NW; ++j) {
-      c += (u64)x.w[i] * x.w[j] + r[i + j];
-      r[i + j] = (u32)c;
-      c >>= 32;
-    }
-    r[i + NW] = (u32)c;
-  }
-#pragma unroll
-  for (int k = 2 * NW - 1; k > 0; --k) r[k] = __funnelshift_l(r[k - 1], r[k], 1);
-  r[0] <<= 1;
-  u64 c = 0;
-#pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    const u64 d = (u64)x.w[i] * x.w[i];
-    c += (u64)r[2 * i] + (u32)d;
-    r[2 * i] = (u32)c;
-    c >>= 32;
-    c += (u64)r[2 * i + 1] + (d >> 32);
-    r[2 * i + 1] = (u32)c;
-    c >>= 32;
-  }
-  const Fe p = fe_p();
-  u32 h = 0;
-#pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    const u32 m = r[i] * kN0;
-    u64 c2 = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      c2 += (u64)m * p.w[j] + r[i + j];
-      r[i + j] = (u32)c2;
-      c2 >>= 32;
-    }
-    c2 += (u64)r[i + NW] + h;
-    r[i + NW] = (u32)c2;
-    h = (u32)(c2 >> 32);
-  }
-  Fe out;
-#pragma unroll
-  for (int k = 0; k < NW; ++k) out.w[k] = r[NW + k];
-  return out;
 }
 
 }  // namespace

@@ -52,14 +52,15 @@ _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 
 def sass_digests(text):
     """{kernel key: (sha256 of its instructions, instruction count)} from
-    ``cuobjdump -sass``'s output; addresses and encodings are left out."""
-    out, name, insns = {}, None, []
+    ``cuobjdump -sass``'s output; addresses and encodings are left out.  A
+    key whose needle names several functions (the CIOS kernel's group and
+    lane kernels) digests all of them in the order of the listing."""
+    found, name, insns = {}, None, []
 
     def close():
         for key, needle in KERNELS.items():
             if name and needle in name:
-                out[key] = (hashlib.sha256("\n".join(insns).encode())
-                            .hexdigest()[:16], len(insns))
+                found.setdefault(key, []).extend(insns)
 
     for line in text.splitlines():
         if "Function :" in line:
@@ -70,7 +71,8 @@ def sass_digests(text):
             if m:
                 insns.append(" ".join(m.group(1).split()))
     close()
-    return out
+    return {key: (hashlib.sha256("\n".join(v).encode()).hexdigest()[:16],
+                  len(v)) for key, v in found.items()}
 
 
 def summarize(runs):

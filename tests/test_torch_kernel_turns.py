@@ -29,6 +29,17 @@ def test_sass_digests_split_kernels_and_ignore_addresses():
     assert kt.sass_digests(moved) == got
 
 
+def test_sass_digests_join_the_functions_of_one_kernel():
+    two = SASS + """
+		Function : _ZN55_GLOBAL__N__bbbb31poseidon_bn254_cios_kernel_laneEPKx
+        /*0000*/                   IMAD R2, R3, R4, R5 ;            /* 0x0000000403027224 */
+"""
+    got, one = kt.sass_digests(two), kt.sass_digests(SASS)
+    assert got["poseidon_bn254_cios"][1] == 3
+    assert got["poseidon_bn254_cios"][0] != one["poseidon_bn254_cios"][0]
+    assert got["poseidon_bn254"] == one["poseidon_bn254"]
+
+
 def test_summarize_averages_turns_and_divides_by_tree_0():
     runs = [{"tree": 0, "sass": {}, "ms": {"a": [1.0, 3.0]}},
             {"tree": 1, "sass": {}, "ms": {"a": [4.0]}},

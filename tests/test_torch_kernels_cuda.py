@@ -67,11 +67,14 @@ def test_poseidon_bn254_kernel_rejects_other_dtypes(dev):
         kb.permute(torch.zeros((2, 4, 16), dtype=torch.int32, device=dev))
 
 
-# The CIOS kernel's blocks own 32 lanes of 4 threads each: lane counts off
-# that tile and off kernel A's, and the main path's two launch sizes, 7168
-# (leaf scans, FRI layers) and 28672 (Merkle levels), plus one.
+# The CIOS kernel's group kernel owns 32 lanes a block (4 threads each), its
+# lane kernel 128 (a thread each), and the launch switches from one to the
+# other at 8448 lanes on the H100: lane counts off those tiles and off
+# kernel A's, either side of the switch, and the main path's two launch
+# sizes, 7168 (leaf scans, FRI layers) and 28672 (Merkle levels), plus one.
 @pytest.mark.parametrize("shape", [(1,), (31,), (33,), (63,), (65,), (3, 2),
-                                   (1000,), (7168,), (28673,)])
+                                   (1000,), (7168,), (8447,), (8448,),
+                                   (28673,)])
 def test_poseidon_bn254_cios_kernel_matches_plain(dev, shape):
     st = _bn_states(shape, seed=len(shape) * 2000 + shape[0]).to(dev)
     before = kc.permute.launches
