@@ -357,12 +357,16 @@ def main_path(impl, dev, spec_step, batch_step, expected, spec_db, batch_db,
 
 def profile_batch(impl, spec, batch, dev):
     """One verify_batch under torch.profiler: (wall s, device kernel and
-    copy events seen, device busy s, {kernel: (launches, device s)})."""
+    copy events seen, device busy s, {kernel: (launches, device s)}).  The
+    CIOS kernel's two kernels are also counted apart: its group kernel runs
+    the launches below 8448 lanes, its lane kernel the larger ones."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     names = {"poseidon_bn254": "poseidon_bn254_kernel",
              "poseidon_bn254_cios": "poseidon_bn254_cios_kernel",
+             "poseidon_bn254_cios_group": "poseidon_bn254_cios_kernel_group",
+             "poseidon_bn254_cios_lane": "poseidon_bn254_cios_kernel_lane",
              "poseidon_gl_transcript": "transcript_kernel"}
     with pb_impl(impl), profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
@@ -500,8 +504,12 @@ def main():
         wall, n_dev, busy, per_kernel = profile_batch(impl, spec_step,
                                                       batch_step, dev)
         used = "poseidon_bn254_cios" if impl == "cios" else "poseidon_bn254"
-        if busy <= 0 or per_kernel[used][0] == 0:
-            raise AssertionError(f"{impl}: the profile shows no {used} launch")
+        need = [used] + ([f"{used}_group", f"{used}_lane"]
+                         if impl == "cios" else [])
+        for key in need:
+            if busy <= 0 or per_kernel[key][0] == 0:
+                raise AssertionError(f"{impl}: the profile shows no {key} "
+                                     f"launch")
         kern = ", ".join(f"{k} {n} launches {t:.6f} s"
                          for k, (n, t) in per_kernel.items() if n)
         print(f"profile {impl} step B={STEP_BATCH}: wall {wall:.4f} s under "

@@ -88,11 +88,15 @@
 //   1.01p, and one subtraction of p makes it canonical.
 //
 // What still holds it back (PERF.md, §6): each partial round's S-box is
-// three dependent products, and 56 of the 64 rounds are partial; at 7168
-// lanes a group's chain sets the time.
+// three dependent products, and 56 of the 64 rounds are partial.  At 7168
+// lanes a group's chain sets the time, most of it the reductions' limb by
+// limb steps and the carry passes, which are serial; at 28672 lanes the
+// lane kernel holds 254 registers, so an SM runs 8 warps.
 //
-// ptxas -v (sm_90a, nvcc 12.9, printed by chip_smoke.py on the H100):
-// not yet measured.
+// ptxas -v (sm_90a, nvcc 12.9, printed by chip_smoke.py on the H100): the
+// group kernel 80 registers, no spills; the lane kernel 254 registers, an
+// 8-byte stack frame, 8 bytes of spill stores and loads; each 18,576 bytes
+// of static shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

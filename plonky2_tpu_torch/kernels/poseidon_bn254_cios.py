@@ -4,12 +4,13 @@
 Replaces the Pallas TPU kernel ``plonky2_tpu/kernels/poseidon_bn254_pallas.py``
 (``permute`` -> ``_kernel``), the all-vector-unit variant that the JAX
 package runs under ``PLONKY2_TPU_PB_IMPL=cios``; ``hash/poseidon_bn254.permute``
-selects it the same way.  The kernel runs a permutation lane on a group of
-four threads, one state element each, as 9 limbs of 29 bits whose products
-sum into 64-bit columns, with Montgomery reductions by 2^261; it is bound by
-32-bit integer multiply-adds (see the source's header).  It computes the
-same function as kernel A (``kernels/poseidon_bn254.py``), so its plain
-version is the same.
+selects it the same way.  The kernel computes on 9 limbs of 29 bits whose
+products sum into 64-bit columns, with Montgomery reductions by 2^261, on a
+group of four threads a lane for small launches and one thread a lane for
+large ones (the launch picks by the lane count); it is bound by 32-bit
+integer multiply-adds (see the source's header).  It computes the same
+function as kernel A (``kernels/poseidon_bn254.py``), so its plain version
+is the same.
 
 ``permute`` launches the kernel for a CUDA tensor and raises if it cannot;
 it takes the plain version (``permute_plain``) only for a CPU tensor.
