@@ -12,7 +12,8 @@
    kernels, and strided input; the transcript: odd batches, on both
    fixtures' schedules), and times it beside its plain version; the two
    Poseidon-BN254 kernels (A, the default, and the CIOS kernel) are timed in
-   turns (A, CIOS, CIOS, A) at both lane counts the main path launches; one
+   turns (A, CIOS, CIOS, A) at both lane counts the main path launches and
+   at half of each, the lane counts of a step batch split in two; one
    dependent Goldilocks product's latency is timed for the transcript's
    latency bound; ``ptxas -v``'s report of every kernel is printed;
 4. the main path under PLONKY2_TPU_PB_IMPL=mxu: verifies 256 copies of
@@ -29,7 +30,19 @@
    hand-written kernel's device time per batch;
 8. the soundness matrix on step (tools/soundness_matrix) under both
    settings: lane 0 True, every other lane False;
-9. the command line: ``verify`` on decode_block and ``bench`` on step B=256.
+9. the command line: ``verify`` on decode_block and ``bench`` on step B=256;
+10. the parallel paths (parallel/mesh.py, parallel/distributed.py), each on
+   the step batch (lane 1 corrupted, the same verdicts as verify_batch) with
+   its own launch counts, both the Poseidon-BN254 and the transcript kernel
+   required: the 1-D mesh over every GPU; the (1, 2) proof x query mesh over
+   [cuda:0, cuda:0], which launches the BN254 kernel at B*Q/2 = 3584 and
+   4*B*Q/2 = 14336 lanes, and on it the decode_block batch [valid, bad
+   opening, a leaf corrupted in the last query round, a proof that fails
+   ingest] (must give [True, False, False, False]); verify_batch_distributed
+   in a group of one (NCCL); two ranks as subprocesses, B=128 each, lane 129
+   corrupted (NCCL with a GPU each, else gloo, both on cuda:0); one short run
+   of tools/micro_pb and of tools/scaling_bench (whose sizes above the GPU
+   count are "not measured").
 
 Every phase must pass or the script exits non-zero.  Each kernel launch
 counter is set to 0 just before the path it belongs to and read just after.
@@ -42,7 +55,6 @@ from __future__ import annotations
 import contextlib
 import io
 import json
-import os
 import subprocess
 import sys
 import time
@@ -54,14 +66,19 @@ import torch
 from plonky2_tpu_torch import cli, verifier
 from plonky2_tpu_torch.fields import bn254
 from plonky2_tpu_torch.fields import goldilocks as gl
+from plonky2_tpu_torch.hash import poseidon_bn254 as pb
 from plonky2_tpu_torch.kernels import build
 from plonky2_tpu_torch.kernels import poseidon_bn254 as kb
 from plonky2_tpu_torch.kernels import poseidon_bn254_cios as kc
 from plonky2_tpu_torch.kernels import poseidon_gl_transcript as kt
+from plonky2_tpu_torch.parallel import distributed
+from plonky2_tpu_torch.parallel import mesh as pmesh
 from plonky2_tpu_torch.proof import serde
 from plonky2_tpu_torch.proof.fixtures import (corrupt_wires_opening,
-                                              decode_block_lanes, load_fixture)
-from plonky2_tpu_torch.tools import profile_verify, soundness_matrix
+                                              decode_block_lanes, load_fixture,
+                                              query_shard_lanes)
+from plonky2_tpu_torch.tools import (dist_worker, micro_pb, profile_verify,
+                                     scaling_bench, soundness_matrix)
 from plonky2_tpu_torch.transcript import challenger as chal
 
 TESTDATA = Path(__file__).resolve().parent / "testdata"
@@ -112,6 +129,8 @@ TRANSCRIPT_BATCHES = [1, 3, 17, STEP_BATCH, STEP_BATCH + 1]
 # The main path's launches: step B=256 and decode_block B=4, one Poseidon-BN254
 # launch per leaf-scan step and Merkle level, one transcript launch a batch.
 EXPECTED_BN254_LAUNCHES, EXPECTED_TRANSCRIPT_LAUNCHES = 123, 2
+# Two ranks of B=128 each: the corrupted lane lies in rank 1's half.
+RANKS_CORRUPT_LANE = STEP_BATCH // 2 + CORRUPT_LANE
 
 
 def nvidia_smi(query):
@@ -182,20 +201,6 @@ def timed_once(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
-
-
-@contextlib.contextmanager
-def pb_impl(name):
-    """Run the block with PLONKY2_TPU_PB_IMPL set to ``name``."""
-    old = os.environ.get("PLONKY2_TPU_PB_IMPL")
-    os.environ["PLONKY2_TPU_PB_IMPL"] = name
-    try:
-        yield
-    finally:
-        if old is None:
-            del os.environ["PLONKY2_TPU_PB_IMPL"]
-        else:
-            os.environ["PLONKY2_TPU_PB_IMPL"] = old
 
 
 def random_bn_states(n, rng):
@@ -325,7 +330,7 @@ def main_path(impl, dev, spec_step, batch_step, expected, spec_db, batch_db,
               mask_db):
     """Verify the step and decode_block batches under ``impl``; returns the
     verdicts, the launch counts of this path alone and the first-call wall."""
-    with pb_impl(impl):
+    with pb.use_impl(impl):
         torch.cuda.synchronize()
         reset_counters()
         t0 = time.perf_counter()
@@ -368,7 +373,7 @@ def profile_batch(impl, spec, batch, dev):
              "poseidon_bn254_cios_group": "poseidon_bn254_cios_kernel_group",
              "poseidon_bn254_cios_lane": "poseidon_bn254_cios_kernel_lane",
              "poseidon_gl_transcript": "transcript_kernel"}
-    with pb_impl(impl), profile(activities=[ProfilerActivity.CPU,
+    with pb.use_impl(impl), profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         verifier.verify_batch(spec, batch, device=dev)
@@ -382,6 +387,159 @@ def profile_batch(impl, spec, batch, dev):
         per_kernel[key] = (len(hits),
                            sum(e.time_range.elapsed_us() for e in hits) / 1e6)
     return wall, len(on_device), busy, per_kernel
+
+
+def timed_path(fn):
+    """(fn(), wall s, the kernel launches of fn alone)."""
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counters()
+
+
+def check_launches(what, launches, bn254, transcript):
+    """Fail unless ``what`` launched kernel A ``bn254`` times, the transcript
+    kernel ``transcript`` times and the CIOS kernel never."""
+    want = {"poseidon_bn254": bn254, "poseidon_bn254_cios": 0,
+            "poseidon_gl_transcript": transcript}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+
+
+def parallel_paths(dev, card, spec_step, batch_step, expected, per_verify):
+    """The mesh and distributed paths on the step batch (and the (1, 2)
+    mesh on the query-shard decode_block lanes); returns each path's
+    launches.  ``per_verify``: kernel A's launches of one verification of
+    a step batch and of a decode_block batch, from the main path."""
+    n_gpu = torch.cuda.device_count()
+    bn_step, bn_db = per_verify
+    launches = {}
+
+    def same(got, what):
+        if not np.array_equal(got, expected):
+            raise AssertionError(f"{what}: step verdicts differ from "
+                                 f"verify_batch in lanes "
+                                 f"{np.nonzero(got != expected)[0].tolist()}")
+
+    mesh = pmesh.make_mesh()
+    got, wall, launches["mesh_1d"] = timed_path(
+        lambda: pmesh.verify_batch_sharded(spec_step, batch_step, mesh))
+    same(got, "1-D mesh")
+    check_launches("1-D mesh", launches["mesh_1d"], n_gpu * bn_step, n_gpu)
+    print(f"1-D mesh over {n_gpu} GPU(s): step B={STEP_BATCH}, lane "
+          f"{CORRUPT_LANE} alone rejected; wall per batch {wall:.3f} s; "
+          f"launches {launches['mesh_1d']} [{card}]")
+
+    mesh2 = pmesh.make_mesh_2d([dev, dev], (1, 2))
+    got, wall, launches["mesh_2d"] = timed_path(
+        lambda: pmesh.verify_batch_sharded_2d(spec_step, batch_step, mesh2))
+    same(got, "(1, 2) mesh")
+    check_launches("(1, 2) mesh", launches["mesh_2d"], 2 * bn_step, 2)
+    print(f"(1, 2) proof x query mesh on [{dev}, {dev}]: step B={STEP_BATCH}, "
+          f"lane {CORRUPT_LANE} alone rejected; wall per batch {wall:.3f} s; "
+          f"launches {launches['mesh_2d']} [{card}]")
+    spec_q, raws, vraw = query_shard_lanes(TESTDATA / "decode_block")
+    batch_q, _, errors = serde.ingest_batch(spec_q, [(r, vraw) for r in raws])
+    if list(errors) != [3]:
+        raise AssertionError(f"query-shard lanes: ingest errors {errors}")
+    out, wall, launches["mesh_2d_decode_block"] = timed_path(
+        lambda: pmesh.verify_batch_sharded_2d(spec_q, batch_q, mesh2,
+                                              diagnostics=True))
+    shards = out["query_shards"].tolist()
+    if (out["verdict"].tolist() != DECODE_EXPECTED
+            or shards[2] != [True, False] or shards[3] != [True, True]):
+        raise AssertionError(f"(1, 2) mesh: decode_block {out}")
+    check_launches("(1, 2) mesh, decode_block",
+                   launches["mesh_2d_decode_block"], 2 * bn_db, 2)
+    print(f"(1, 2) mesh: decode_block [valid, bad opening, last-round leaf, "
+          f"quarantined]: {out['verdict'].tolist()}, per query shard "
+          f"{shards}; wall {wall:.3f} s [{card}]")
+
+    distributed.initialize("nccl", f"tcp://localhost:{dist_worker.free_port()}",
+                           1, 0, dev)
+    try:
+        # the first call's first collective also sets up NCCL's communicator
+        (got, n_accept), wall, launches["distributed_1"] = timed_path(
+            lambda: distributed.verify_batch_distributed(spec_step,
+                                                         batch_step, dev))
+        (again, _), wall2, _ = timed_path(
+            lambda: distributed.verify_batch_distributed(spec_step,
+                                                         batch_step, dev))
+    finally:
+        torch.distributed.destroy_process_group()
+    same(got, "distributed, world size 1")
+    same(again, "distributed, world size 1, second call")
+    if n_accept != STEP_BATCH - 1:
+        raise AssertionError(f"distributed, world size 1: n_accept {n_accept}")
+    check_launches("distributed, world size 1", launches["distributed_1"],
+                   bn_step, 1)
+    print(f"verify_batch_distributed, world size 1 (nccl): step B="
+          f"{STEP_BATCH}, n_accept {n_accept}; wall per batch {wall:.3f} s "
+          f"first call, {wall2:.3f} s second call [{card}]")
+
+    argv = ["--circuit", str(TESTDATA / "step"),
+            "--local-batch", str(STEP_BATCH // 2),
+            "--corrupt", str(RANKS_CORRUPT_LANE), "--iters", "2"]
+    if n_gpu < 2:  # NCCL refuses two ranks on one GPU
+        argv += ["--backend", "gloo", "--device", str(dev)]
+    t0 = time.perf_counter()
+    ranks = dist_worker.launch(2, argv, timeout=600)
+    job_s = time.perf_counter() - t0
+    want = np.ones(STEP_BATCH, bool)
+    want[RANKS_CORRUPT_LANE] = False
+    for r in ranks:
+        if r["verdicts"] != want.tolist() or r["n_accept"] != STEP_BATCH - 1:
+            raise AssertionError(f"two ranks: rank {r['rank']} verdicts "
+                                 f"wrong or n_accept {r['n_accept']}")
+        check_launches(f"two ranks: rank {r['rank']}", r["launches"],
+                       bn_step, 1)
+    launches["distributed_2_ranks"] = {
+        k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    print(f"verify_batch_distributed, two ranks as subprocesses "
+          f"({ranks[0]['backend']}; {', '.join(r['device'] for r in ranks)}): "
+          f"B={STEP_BATCH // 2} each, lane {RANKS_CORRUPT_LANE} alone "
+          f"rejected on both, n_accept {STEP_BATCH - 1}; wall per batch (first, "
+          f"second call) rank 0 {ranks[0]['seconds']}, rank 1 "
+          f"{ranks[1]['seconds']} s; job {job_s:.1f} s with start-up [{card}]")
+    return launches
+
+
+def tool_runs(dev, card):
+    """One short run of tools/micro_pb and of tools/scaling_bench; returns
+    (their launches, micro_pb's report)."""
+    launches = {}
+    reset_counters()
+    report = micro_pb.run(dev)
+    launches["micro_pb"] = read_counters()
+    if not (launches["micro_pb"]["poseidon_bn254"]
+            and launches["micro_pb"]["poseidon_bn254_cios"]):
+        raise AssertionError(f"micro_pb: launches {launches['micro_pb']}")
+    for impl, r in report["impls"].items():
+        print(f"micro_pb {impl}: chains of {report['steps']} launches at "
+              f"{report['lanes']} lanes {r['chain_ms']} ms; "
+              f"{r['ms_per_launch']:.4f} ms a launch, "
+              f"{r['ns_per_permutation']:.4f} ns a permutation [{card}]")
+
+    n_gpu = torch.cuda.device_count()
+    buf = io.StringIO()
+    reset_counters()
+    with contextlib.redirect_stdout(buf):
+        rc = scaling_bench.main(["--sizes", f"1,{n_gpu + 1}", "--iters", "1"])
+    launches["scaling_bench"] = read_counters()
+    if rc != 0:
+        raise AssertionError(f"scaling_bench: exit {rc}")
+    first, above = json.loads(buf.getvalue().strip().splitlines()[-1])["mesh"]
+    if above.get("status") != "not measured" or not (
+            launches["scaling_bench"]["poseidon_bn254"]
+            and launches["scaling_bench"]["poseidon_gl_transcript"]):
+        raise AssertionError(f"scaling_bench: {above}, launches "
+                             f"{launches['scaling_bench']}")
+    print(f"scaling_bench: mesh size 1, step B={first['global_batch']}: "
+          f"{first['proofs_per_s']:.2f} proofs/s ({first['best_s']:.3f} s); "
+          f"mesh size {above['n']}: not measured ({above['reason']}) [{card}]")
+    return launches, report
 
 
 def run_cli(argv, card):
@@ -424,9 +582,13 @@ def main():
     spec_db_only = load_fixture(TESTDATA / "decode_block")[0]
     Q = spec_step.num_query_rounds
     lanes = [STEP_BATCH * Q, STEP_BATCH * Q * 4]  # leaf scans, Merkle paths
-    bn_lanes = sorted(set(lanes + BN_LANES_RISKY))
-    bn_err, bn_ms, bn_plain = check_bn254_kernels(dev, rng, bn_lanes, lanes)
-    for n in lanes:
+    # the same on half the batch or half the query rounds: two ranks of
+    # B=128, or two query shards of a (1, 2) mesh
+    par_lanes = [n // 2 for n in lanes]
+    bn_lanes = sorted(set(lanes + par_lanes + BN_LANES_RISKY))
+    bn_err, bn_ms, bn_plain = check_bn254_kernels(dev, rng, bn_lanes,
+                                                  lanes + par_lanes)
+    for n in lanes + par_lanes:
         t = bn_ms[n]
         print(f"poseidon_bn254 kernels A and CIOS at {n} lanes in turns A, "
               f"CIOS, CIOS, A: {t['a'][0]:.4f}, {t['cios'][0]:.4f}, "
@@ -492,7 +654,7 @@ def main():
 
     # -- 4. stage times (tools/profile_verify), in turns
     for impl in ("mxu", "cios", "cios", "mxu"):
-        with pb_impl(impl):
+        with pb.use_impl(impl):
             st = profile_verify.profile_stages(spec_step, batch_step, dev)
         if not np.array_equal(st.pop("verdicts"), expected):
             raise AssertionError(f"{impl}: stage probe gave other verdicts")
@@ -518,7 +680,7 @@ def main():
 
     # -- 6. soundness matrix on step
     for impl in ("mxu", "cios"):
-        with pb_impl(impl):
+        with pb.use_impl(impl):
             sm = soundness_matrix.run("step", dev)
         if not sm["all_correct"]:
             raise AssertionError(f"{impl}: soundness matrix {sm['rows']}")
@@ -531,15 +693,29 @@ def main():
     run_cli(["bench", "--circuit", str(TESTDATA / "step"),
              "--batch", str(STEP_BATCH), "--iters", "3"], card)
 
+    # -- 8. the parallel paths and their tools
+    per_verify = (launches_step["poseidon_bn254"],
+                  launches["poseidon_bn254"] - launches_step["poseidon_bn254"])
+    par_launches = parallel_paths(dev, card, spec_step, batch_step, expected,
+                                  per_verify)
+    tool_launches, _ = tool_runs(dev, card)
+    par_launches.update(tool_launches)
+
     bn_bound, bn_by, bn_form = bn254_bound(lanes[-1], rate)
     bn_bound_small = bn254_bound(lanes[0], rate)[0]
+
+    def at_lanes(n, key):
+        return {"lanes": n, "ms": float(np.mean(bn_ms[n][key])),
+                "plain_ms": bn_plain[n][key],
+                "bound_ms": bn254_bound(n, rate)[0]}
 
     def at_small(key):
         # the main path's other launch size: the leaf scans' and FRI
         # layers' lane count
-        return {"lanes": lanes[0], "ms": float(np.mean(bn_ms[lanes[0]][key])),
-                "plain_ms": bn_plain[lanes[0]][key],
-                "bound_ms": bn_bound_small}
+        return at_lanes(lanes[0], key)
+
+    def on_parallel_paths(name):
+        return {path: counts[name] for path, counts in par_launches.items()}
 
     tr_bound, tr_by, tr_form = transcript_bound(n_perms, STEP_BATCH, tr_bytes,
                                                 rate, latency_s)
@@ -551,7 +727,9 @@ def main():
          "lanes": lanes[-1], "ms": float(np.mean(bn_ms[lanes[-1]]["a"])),
          "plain_ms": bn_plain[lanes[-1]]["a"],
          "bound_ms": bn_bound, "bound_by": bn_by, "bound_form": bn_form,
-         "library_ms": NO_LIBRARY, "at_smaller_launch": at_small("a")},
+         "library_ms": NO_LIBRARY, "at_smaller_launch": at_small("a"),
+         "at_parallel_launches": [at_lanes(n, "a") for n in par_lanes],
+         "launches_on_parallel_paths": on_parallel_paths("poseidon_bn254")},
         {"name": "poseidon_bn254_cios", "route": "cuda",
          "source": "plonky2_tpu_torch/csrc/poseidon_bn254_cios.cu",
          "replaces": "plonky2_tpu/kernels/poseidon_bn254_pallas.py:263",
@@ -560,14 +738,19 @@ def main():
          "lanes": lanes[-1], "ms": float(np.mean(bn_ms[lanes[-1]]["cios"])),
          "plain_ms": bn_plain[lanes[-1]]["cios"],
          "bound_ms": bn_bound, "bound_by": bn_by, "bound_form": bn_form,
-         "library_ms": NO_LIBRARY, "at_smaller_launch": at_small("cios")},
+         "library_ms": NO_LIBRARY, "at_smaller_launch": at_small("cios"),
+         "at_parallel_launches": [at_lanes(n, "cios") for n in par_lanes],
+         "launches_on_parallel_paths": on_parallel_paths(
+             "poseidon_bn254_cios")},
         {"name": "poseidon_gl_transcript", "route": "cuda",
          "source": "plonky2_tpu_torch/csrc/poseidon_gl_transcript.cu",
          "replaces": "plonky2_tpu/kernels/poseidon_gl_pallas.py:230",
          "launches": launches["poseidon_gl_transcript"], "max_abs_err": tr_err,
          "ms": tr_ms, "plain_ms": tr_plain_ms,
          "bound_ms": tr_bound, "bound_by": tr_by, "bound_form": tr_form,
-         "library_ms": NO_LIBRARY},
+         "library_ms": NO_LIBRARY,
+         "launches_on_parallel_paths": on_parallel_paths(
+             "poseidon_gl_transcript")},
     ]
     print(f"kernel bounds at the timed shapes: BN254 {lanes[-1]} lanes "
           f"{bn_bound:.4f} ms, {lanes[0]} lanes {bn_bound_small:.4f} ms "

@@ -92,14 +92,37 @@ def _bcast_qe(x):
     return qe.index(x, (Ellipsis, None))
 
 
-def verify_fri(spec, dev, challenges, verdict):
-    """Verify the FRI opening proof; returns the updated (B,) verdict."""
+def query_rounds(spec, query_shard=None):
+    """The FRI query rounds ``[start, stop)`` a batch holds: all of them, or
+    with ``query_shard=(k, n)`` the k-th of n contiguous blocks of Q/n, the
+    rounds that a JAX ("proof", "query") mesh gives query shard k."""
+    Q = spec.num_query_rounds
+    if query_shard is None:
+        return 0, Q
+    k, n = query_shard
+    if n < 1 or Q % n or not 0 <= k < n:
+        raise ValueError(f"query shard {k} of {n}: the {Q} query rounds of "
+                         f"the circuit must split into n equal blocks")
+    return k * Q // n, (k + 1) * Q // n
+
+
+def verify_fri(spec, dev, challenges, verdict, query_shard=None):
+    """Verify the FRI opening proof; returns the updated (B,) verdict.
+
+    With ``query_shard=(k, n)``, ``dev`` holds only the query rounds of
+    ``query_rounds(spec, query_shard)`` and only those rounds are checked;
+    the verdict is then this shard's share, to be ANDed over the n shards."""
+    start, stop = query_rounds(spec, query_shard)
     Q = dev["init_siblings"].shape[1]
-    if Q != spec.num_query_rounds:
+    if Q != stop - start:
         # the JAX package takes Q from the data; here a batch with another
         # count is malformed, not a proof to judge
-        raise ValueError(f"batch has {Q} FRI query rounds, the circuit "
-                         f"specifies {spec.num_query_rounds}")
+        raise ValueError(f"batch has {Q} FRI query rounds, expected "
+                         f"{stop - start} of the circuit's "
+                         f"{spec.num_query_rounds} (query shard {query_shard})")
+    if query_shard is not None:
+        challenges = dict(challenges, query_indices=tuple(
+            t[:, start:stop] for t in challenges["query_indices"]))
     B = dev["pow_witness"][0].shape[0]
     lde_bits = spec.lde_bits
     device = dev["init_siblings"].device

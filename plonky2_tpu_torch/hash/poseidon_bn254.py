@@ -17,6 +17,7 @@ linear layer has one form.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 
@@ -98,7 +99,7 @@ _NL = bn254.NUM_LIMBS
 _M16 = bn254.MASK
 
 
-@functools.lru_cache(maxsize=4)
+@functools.lru_cache(maxsize=16)
 def _plain_tables(device):
     P = bn254.P
     ninv = (-pow(P, -1, bn254.R)) % bn254.R
@@ -227,6 +228,22 @@ def kernel_impl():
     if impl not in IMPLS:
         raise ValueError(f"PLONKY2_TPU_PB_IMPL={impl!r}: expected one of {IMPLS}")
     return impl
+
+
+@contextlib.contextmanager
+def use_impl(name):
+    """Run the block with ``PLONKY2_TPU_PB_IMPL`` set to ``name``."""
+    if name not in IMPLS:
+        raise ValueError(f"{name!r}: expected one of {IMPLS}")
+    old = os.environ.get("PLONKY2_TPU_PB_IMPL")
+    os.environ["PLONKY2_TPU_PB_IMPL"] = name
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PLONKY2_TPU_PB_IMPL"]
+        else:
+            os.environ["PLONKY2_TPU_PB_IMPL"] = old
 
 
 def permute(state):

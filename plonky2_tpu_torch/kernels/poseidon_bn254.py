@@ -97,7 +97,7 @@ def round_matrices():
     return mats
 
 
-@functools.lru_cache(maxsize=4)
+@functools.lru_cache(maxsize=16)
 def _kernel_tables(device):
     """(constant words, round matrices) of kernel A on ``device``."""
     words = const_words(build.library().p2t_poseidon_bn254_n_const())
@@ -124,9 +124,10 @@ def permute(state):
         src = src.clone()
     out = torch.empty_like(src)
     consts, mats = _kernel_tables(src.device)
-    rc = build.library().p2t_poseidon_bn254_permute(
-        src.data_ptr(), out.data_ptr(), consts.data_ptr(), mats.data_ptr(),
-        src.numel() // 64, build.stream_handle(src.device))
+    with torch.cuda.device(src.device):  # the launch goes to the current device
+        rc = build.library().p2t_poseidon_bn254_permute(
+            src.data_ptr(), out.data_ptr(), consts.data_ptr(), mats.data_ptr(),
+            src.numel() // 64, build.stream_handle(src.device))
     build.check(rc, "poseidon_bn254 launch")
     permute.launches += 1
     return out

@@ -52,7 +52,7 @@ def const_limbs(n_const):
     return out.reshape(-1).view(np.int32)
 
 
-@functools.lru_cache(maxsize=4)
+@functools.lru_cache(maxsize=16)
 def _kernel_consts(device):
     """Constant buffer of the kernel (``const_limbs``), in its OFF_* order."""
     limbs = const_limbs(build.library().p2t_poseidon_bn254_cios_n_const())
@@ -67,9 +67,10 @@ def permute(state):
     src = state.contiguous()
     out = torch.empty_like(src)
     consts = _kernel_consts(src.device)
-    rc = build.library().p2t_poseidon_bn254_cios_permute(
-        src.data_ptr(), out.data_ptr(), consts.data_ptr(), src.numel() // 64,
-        build.stream_handle(src.device))
+    with torch.cuda.device(src.device):  # the launch goes to the current device
+        rc = build.library().p2t_poseidon_bn254_cios_permute(
+            src.data_ptr(), out.data_ptr(), consts.data_ptr(), src.numel() // 64,
+            build.stream_handle(src.device))
     build.check(rc, "poseidon_bn254_cios launch")
     permute.launches += 1
     return out

@@ -51,7 +51,7 @@ def schedule_tables(schedule, device):
                             torch.device(device))
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=32)
 def _schedule_tables(gather, mask, device):
     return (torch.frombuffer(bytearray(gather), dtype=torch.int64).to(device),
             torch.frombuffer(bytearray(mask), dtype=torch.uint8)
@@ -87,7 +87,7 @@ def run_transcript_plain(schedule, obs, pi_hash):
     return torch.stack(out_lo), torch.stack(out_hi)
 
 
-@functools.lru_cache(maxsize=4)
+@functools.lru_cache(maxsize=16)
 def _kernel_consts(device):
     """u64 constant buffer in the kernel's OFF_* order."""
     C = pgl.consts()
@@ -121,10 +121,11 @@ def run_transcript_kernel(schedule, obs, pi_hash):
     out_lo = torch.empty((n_perms, WIDTH, B), dtype=torch.int64, device=device)
     out_hi = torch.empty_like(out_lo)
     consts = _kernel_consts(device)
-    rc = build.library().p2t_transcript(
-        absorb_lo.data_ptr(), absorb_hi.data_ptr(), mask.data_ptr(),
-        consts.data_ptr(), out_lo.data_ptr(), out_hi.data_ptr(), n_perms, B,
-        build.stream_handle(device))
+    with torch.cuda.device(device):  # the launch goes to the current device
+        rc = build.library().p2t_transcript(
+            absorb_lo.data_ptr(), absorb_hi.data_ptr(), mask.data_ptr(),
+            consts.data_ptr(), out_lo.data_ptr(), out_hi.data_ptr(), n_perms,
+            B, build.stream_handle(device))
     build.check(rc, "transcript launch")
     run_transcript_kernel.launches += 1
     return out_lo.transpose(1, 2), out_hi.transpose(1, 2)
@@ -135,8 +136,9 @@ def mul_chain(x0, n, device):
     thread, each product waiting on the last; returns the (1,) int64 result
     tensor (the u64's bits) without synchronising."""
     out = torch.empty((1,), dtype=torch.int64, device=device)
-    rc = build.library().p2t_gl_mul_chain(out.data_ptr(), x0, n,
-                                           build.stream_handle(device))
+    with torch.cuda.device(out.device):
+        rc = build.library().p2t_gl_mul_chain(out.data_ptr(), x0, n,
+                                               build.stream_handle(out.device))
     build.check(rc, "gl_mul_chain launch")
     return out
 

@@ -35,13 +35,14 @@ def corrupt_wires_opening(raw):
     return bad
 
 
-def corrupt_leaf(raw):
+def corrupt_leaf(raw, query_round=0):
     """Deep-copied proof JSON with 1 added (mod p, so it stays canonical) to
-    one element of query round 0's initial-tree leaf for oracle 1: a Merkle
-    failure that leaves the transcript before the FRI queries untouched."""
+    one element of a query round's initial-tree leaf for oracle 1 (round 0
+    by default; -1 is the last): a Merkle failure that leaves the transcript
+    before the FRI queries untouched and that only that round's check sees."""
     bad = copy.deepcopy(raw)
-    qr0 = bad["proof"]["opening_proof"]["query_round_proofs"][0]
-    leaf = qr0["initial_trees_proof"]["evals_proofs"][1][0]
+    qr = bad["proof"]["opening_proof"]["query_round_proofs"][query_round]
+    leaf = qr["initial_trees_proof"]["evals_proofs"][1][0]
     leaf[5] = (int(leaf[5]) + 1) % P
     return bad
 
@@ -60,4 +61,23 @@ def decode_block_lanes(circuit_dir="testdata/decode_block"):
     spec, raw, vraw = load_fixture(circuit_dir)
     raws = [raw, corrupt_wires_opening(raw), corrupt_leaf(raw),
             corrupt_pow_witness(raw)]
+    return spec, raws, vraw
+
+
+def drop_wires_opening(raw):
+    """Deep-copied proof JSON with the last wire opening removed: it fails
+    ingest, so ``serde.ingest_batch`` quarantines its lane."""
+    bad = copy.deepcopy(raw)
+    bad["proof"]["openings"]["wires"] = bad["proof"]["openings"]["wires"][:-1]
+    return bad
+
+
+def query_shard_lanes(circuit_dir="testdata/decode_block"):
+    """(spec, [valid, bad opening, a leaf corrupted in the last query round,
+    a proof that fails ingest] JSONs, verifier-only JSON): with the query
+    rounds split in two, only the last query shard can reject lane 2 and
+    only the ingest mask lane 3; the verdict is [T, F, F, F]."""
+    spec, raw, vraw = load_fixture(circuit_dir)
+    raws = [raw, corrupt_wires_opening(raw), corrupt_leaf(raw, query_round=-1),
+            drop_wires_opening(raw)]
     return spec, raws, vraw

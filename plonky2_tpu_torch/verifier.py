@@ -75,10 +75,16 @@ def _extract_challenges(schedule, states):
     }
 
 
-def verify_device(spec, schedule, dev, obs, diagnostics=False, timer=None):
+def verify_device(spec, schedule, dev, obs, diagnostics=False, timer=None,
+                  query_shard=None):
     """Verify a tensor batch: dev from ``proof_to_device``, obs the observed
     sequence as a GL pair (B, n_obs) on the same device.  With a
-    ``utils.profiling.StageTimer`` each stage is timed on its own."""
+    ``utils.profiling.StageTimer`` each stage is timed on its own.
+
+    ``query_shard=(k, n)``: dev's per-query-round arrays hold only the k-th
+    of n contiguous blocks of the FRI query rounds (``fri.verify
+    .query_rounds``), and FRI checks only those; the public-input hash, the
+    transcript and the PLONK check run whole, as on a JAX 2-D mesh."""
     def stage(name):
         return timer.stage(name) if timer else contextlib.nullcontext()
 
@@ -93,7 +99,7 @@ def verify_device(spec, schedule, dev, obs, diagnostics=False, timer=None):
     with stage("plonk"):
         plonk_ok = verify_plonk(spec, dev, challenges, pi_hash, ones)
     with stage("fri"):
-        fri_ok = verify_fri(spec, dev, challenges, ones)
+        fri_ok = verify_fri(spec, dev, challenges, ones, query_shard)
     verdict = plonk_ok & fri_ok
     if diagnostics:
         return {"verdict": verdict, "plonk_ok": plonk_ok, "fri_ok": fri_ok}

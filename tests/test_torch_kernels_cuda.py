@@ -42,10 +42,11 @@ def _bn_states(shape, seed):
     return torch.as_tensor(vals)
 
 
-# Kernel A's blocks own 64 lanes: lane counts off that tile, and its largest
-# launch on the main path plus one.
+# Kernel A's blocks own 64 lanes: lane counts off that tile, its largest
+# launch on the main path plus one, and the two launch sizes of a step batch
+# split in two (two ranks of B=128, or two query shards): 3584 and 14336.
 @pytest.mark.parametrize("shape", [(1,), (63,), (65,), (3, 2), (1000,),
-                                   (28673,)])
+                                   (3584,), (14336,), (28673,)])
 def test_poseidon_bn254_kernel_matches_plain(dev, shape):
     st = _bn_states(shape, seed=len(shape) * 1000 + shape[0]).to(dev)
     before = kb.permute.launches
@@ -70,11 +71,13 @@ def test_poseidon_bn254_kernel_rejects_other_dtypes(dev):
 # The CIOS kernel's group kernel owns 32 lanes a block (4 threads each), its
 # lane kernel 128 (a thread each), and the launch switches from one to the
 # other at 8448 lanes on the H100: lane counts off those tiles and off
-# kernel A's, either side of the switch, and the main path's two launch
-# sizes, 7168 (leaf scans, FRI layers) and 28672 (Merkle levels), plus one.
+# kernel A's, either side of the switch, the main path's two launch sizes,
+# 7168 (leaf scans, FRI layers) and 28672 (Merkle levels), plus one, and
+# those of a step batch split in two, 3584 (group kernel) and 14336 (lane
+# kernel).
 @pytest.mark.parametrize("shape", [(1,), (31,), (33,), (63,), (65,), (3, 2),
-                                   (1000,), (7168,), (8447,), (8448,),
-                                   (28673,)])
+                                   (1000,), (3584,), (7168,), (8447,), (8448,),
+                                   (14336,), (28673,)])
 def test_poseidon_bn254_cios_kernel_matches_plain(dev, shape):
     st = _bn_states(shape, seed=len(shape) * 2000 + shape[0]).to(dev)
     before = kc.permute.launches
