@@ -105,16 +105,10 @@ def verify_batch_sharded(spec, proof_batch, mesh, valid_mask=None):
     Uneven batches are padded up to the mesh size with copies of lane 0 and
     the verdict vector sliced back, so any B >= 1 works on any mesh.  The
     batch's ingest mask and the caller's ``valid_mask`` apply as in
-    ``verifier.verify_batch``."""
-    devices = list(mesh.devices.flat)
-    padded, B = pad_batch(proof_batch, len(devices))
-    verdicts = []
-    for i, device in enumerate(devices):
-        schedule, dev, obs = verifier.prepare(
-            spec, _lanes(padded, i, len(devices)), device)
-        verdicts.append(verifier.verify_device(spec, schedule, dev, obs))
-    verdict = np.concatenate([v.cpu().numpy() for v in verdicts])[:B]
-    return verifier.apply_valid_masks(verdict, proof_batch, valid_mask)
+    ``verifier.verify_batch``.  This is the 2-D path on a mesh of one query
+    shard, which holds every round."""
+    column = Mesh(mesh.devices.reshape(-1, 1), ("proof", "query"))
+    return verify_batch_sharded_2d(spec, proof_batch, column, valid_mask)
 
 
 # serde keys whose axis 1 (after batching) is the FRI query-round axis

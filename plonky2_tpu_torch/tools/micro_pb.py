@@ -9,12 +9,13 @@ chains' times over the difference of their lengths, so a fixed cost per
 chain (the first launch, the synchronisation) cancels; the time per
 permutation is that over the lane count.
 
-    python -m plonky2_tpu_torch.tools.micro_pb [--lanes 7168] [--steps 5,25]
-        [--reps 3] [--cpu] [--out FILE]
+    python -m plonky2_tpu_torch.tools.micro_pb [--lanes 7168] [--cpu]
+        [--out FILE]
 
 7168 lanes is the main path's leaf-scan width (step B=256 x 28 query
-rounds).  Chains are timed with CUDA events, best of ``--reps``; both
-settings must give the same chain output.  Prints one JSON line (also
+rounds).  The chains are ``STEPS`` = 5 and 25 launches long, as in the JAX
+tool, each timed with CUDA events, best of ``REPS`` = 2 runs after a warm-up;
+both settings must give the same chain output.  Prints one JSON line (also
 written to ``--out``); runs on the GPU unless ``--cpu`` (the plain torch
 version, timed on the host clock; exit 2 without a GPU and without
 ``--cpu``).
@@ -33,6 +34,9 @@ import torch
 from .. import verifier
 from ..fields import bn254
 from ..hash import poseidon_bn254 as pb
+
+STEPS = (5, 25)  # the two chain lengths
+REPS = 2         # timed runs of each chain; the best counts
 
 
 def random_states(lanes, device, seed=0):
@@ -72,11 +76,9 @@ def chain_ms(state, steps, reps):
     return best, out
 
 
-def run(device, lanes=7168, steps=(5, 25), reps=3):
+def run(device, lanes=7168):
     """Both settings' chains at both lengths; the report as a dict."""
-    n1, n2 = steps
-    if not 0 < n1 < n2:
-        raise ValueError(f"chain lengths {steps}: need 0 < first < second")
+    n1, n2 = STEPS
     state = random_states(lanes, device)
     report = {"device": verifier.device_name(device), "lanes": lanes,
               "steps": [n1, n2], "impls": {}}
@@ -84,8 +86,8 @@ def run(device, lanes=7168, steps=(5, 25), reps=3):
     for impl in pb.IMPLS:
         with pb.use_impl(impl):
             chain(state, 1)  # warm-up: constant tables, kernel load
-            t1, _ = chain_ms(state, n1, reps)
-            t2, outs[impl] = chain_ms(state, n2, reps)
+            t1, _ = chain_ms(state, n1, REPS)
+            t2, outs[impl] = chain_ms(state, n2, REPS)
         per_launch = (t2 - t1) / (n2 - n1)
         report["impls"][impl] = {
             "chain_ms": [t1, t2], "ms_per_launch": per_launch,
@@ -100,9 +102,6 @@ def run(device, lanes=7168, steps=(5, 25), reps=3):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="plonky2_tpu_torch.tools.micro_pb")
     ap.add_argument("--lanes", type=int, default=7168)
-    ap.add_argument("--steps", default="5,25",
-                    help="the two chain lengths, comma-separated")
-    ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain version on the CPU")
     ap.add_argument("--out", default=None, metavar="FILE",
@@ -113,8 +112,7 @@ def main(argv=None):
     except RuntimeError as e:
         print(f"micro_pb: {e}; pass --cpu", file=sys.stderr)
         return 2
-    steps = tuple(int(s) for s in args.steps.split(","))
-    line = json.dumps(run(device, args.lanes, steps, args.reps))
+    line = json.dumps(run(device, args.lanes))
     print(line)
     if args.out:
         with open(args.out, "w") as f:

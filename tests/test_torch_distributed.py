@@ -3,23 +3,30 @@
 Two ranks as subprocesses (``tools/dist_worker.launch``, each with the
 launcher's time limit): decode_block, the valid proof on rank 0 and the
 bad-opening proof on rank 1.  Both ranks must report the verdicts that the
-JAX package's two-process test pins, [True, False], and an accept count of
-1.  The same ranks then pass local batches of unequal size (1 and 2 lanes),
-which must raise ``ValueError`` on every rank.  In this process, a group of
-world size 1 verifies tiny-spec dummy proofs like ``verify_batch`` and
-applies both masks.  Verdicts are booleans, compared exactly."""
+JAX package's two-process test pins, [True, False], equal to the JAX
+package's Python-int verifier (``bench.cpu_reference``) on the same two
+JSONs, and an accept count of 1.  The same ranks then pass local batches of
+unequal size (1 and 2 lanes), which must raise ``ValueError`` on every rank.
+In this process, a group of world size 1 verifies both decode_block proofs
+(the same verdicts again), verifies tiny-spec dummy proofs like
+``verify_batch`` and applies both masks.  Verdicts are booleans, compared
+exactly."""
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
+from plonky2_tpu.bench import cpu_reference as R
+from plonky2_tpu.proof.spec import load_circuit_spec as jload_spec
 from plonky2_tpu_torch import verifier
 from plonky2_tpu_torch.parallel import distributed
 from plonky2_tpu_torch.proof import serde
+from plonky2_tpu_torch.proof.fixtures import corrupt_wires_opening, load_fixture
 from plonky2_tpu_torch.proof.synthetic import make_dummy_proof, make_tiny_spec
 from plonky2_tpu_torch.tools import dist_worker
 
 torch.set_num_threads(1)
+DECODE_BLOCK = "testdata/decode_block"
 
 
 @pytest.fixture(scope="module")
@@ -28,6 +35,19 @@ def two_ranks():
         2, ["--device", "cpu", "--backend", "gloo",
             "--circuit", "testdata/decode_block", "--local-batch", "1",
             "--corrupt", "1", "--unequal-check"], timeout=300)
+
+
+@pytest.fixture(scope="module")
+def decode_block():
+    """(spec, [valid, bad opening] JSONs, verifier-only JSON, the JAX
+    package's Python-int verdicts on them): global lanes 0 and 1 of the
+    two-rank job."""
+    spec, raw, vraw = load_fixture(DECODE_BLOCK)
+    raws = [raw, corrupt_wires_opening(raw)]
+    jspec = jload_spec(f"{DECODE_BLOCK}/common_circuit_data.json")
+    ref = [bool(R.verify(jspec, r, vraw)) for r in raws]
+    assert ref == [True, False]
+    return spec, raws, vraw, ref
 
 
 @pytest.fixture(scope="module")
@@ -46,10 +66,11 @@ def _tiny(n):
                                      for i in range(n)])
 
 
-def test_two_gloo_ranks_agree_on_the_verdicts(two_ranks):
+def test_two_gloo_ranks_agree_on_the_verdicts(two_ranks, decode_block):
+    ref = decode_block[-1]
     for rank, r in enumerate(two_ranks):
         assert r["rank"] == rank and r["backend"] == "gloo"
-        assert r["verdicts"] == [True, False], r
+        assert r["verdicts"] == ref, r
         assert r["n_accept"] == 1, r
 
 
@@ -68,6 +89,17 @@ def test_world_of_one_equals_verify_batch(world_of_one):
     want = verifier.verify_batch(spec, batch, device="cpu")
     assert verdicts.tolist() == want.tolist() == [False, False]
     assert n_accept == 0
+
+
+def test_world_of_one_accepts_the_valid_proof(world_of_one, decode_block,
+                                              two_ranks):
+    spec, raws, vraw, ref = decode_block
+    batch = serde.stack_proofs([serde.ingest_proof(spec, r, vraw)
+                                for r in raws])
+    verdicts, n_accept = distributed.verify_batch_distributed(spec, batch,
+                                                              "cpu")
+    assert verdicts.tolist() == ref == two_ranks[0]["verdicts"]
+    assert n_accept == 1
 
 
 def test_masks_reach_the_distributed_path(world_of_one, monkeypatch):

@@ -24,13 +24,15 @@ def test_no_gpu_without_cpu_flag_exits_nonzero(tool, capsys):
     assert "--cpu" in capsys.readouterr().err
 
 
-def test_micro_pb_on_the_cpu(tmp_path, capsys):
+def test_micro_pb_on_the_cpu(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(micro_pb, "STEPS", (1, 2))  # the plain chains are
+    monkeypatch.setattr(micro_pb, "REPS", 1)        # slow on the CPU
     out = tmp_path / "micro_pb.json"
-    assert micro_pb.main(["--cpu", "--lanes", "2", "--steps", "1,2",
-                          "--reps", "1", "--out", str(out)]) == 0
+    assert micro_pb.main(["--cpu", "--lanes", "2", "--out", str(out)]) == 0
     report = json.loads(out.read_text())
     assert json.loads(capsys.readouterr().out) == report
     assert report["device"] == "cpu" and report["lanes"] == 2
+    assert report["steps"] == [1, 2]
     assert sorted(report["impls"]) == ["cios", "mxu"]
 
 
