@@ -16,36 +16,55 @@
    at half of each, the lane counts of a step batch split in two; one
    dependent Goldilocks product's latency is timed for the transcript's
    latency bound; ``ptxas -v``'s report of every kernel is printed;
-4. the main path under PLONKY2_TPU_PB_IMPL=mxu: verifies 256 copies of
-   testdata/step with one corrupted lane (only that lane may be rejected)
-   and the decode_block batch [valid, bad opening, bad leaf, bad pow] (must
-   give [True, False, False, False]); kernel A must have been launched 123
-   times and the transcript kernel twice, the CIOS kernel not; then the step
-   batch again for the wall time per batch;
+4. the main path under PLONKY2_TPU_PB_IMPL=mxu, through the compiled
+   verifier (one CUDA graph per key, captured at the key's first call; the
+   cache emptied first): verifies 256 copies of testdata/step with one
+   corrupted lane (only that lane may be rejected) and the decode_block
+   batch [valid, bad opening, bad leaf, bad pow] (must give [True, False,
+   False, False]); the Python launch counters, which see a key's eager
+   warm-up and its capture but no replay, must read kernel A 246 times
+   (2 x 123) and the transcript kernel 4 times, the CIOS kernel never;
 5. the same path under PLONKY2_TPU_PB_IMPL=cios: the same verdicts, the CIOS
    kernel and the transcript kernel launched, kernel A not;
-6. stage times of the step batch (tools/profile_verify) under both settings;
-7. one step batch under torch.profiler under each setting: kernel launches
-   seen on the device, the device's busy share of the wall, and each
-   hand-written kernel's device time per batch;
+6. the compiled verifier under each setting: the replay's verdict, plonk_ok
+   and fri_ok equal the eager verify_device's, bit for bit, on both batches;
+   the same graphs re-fed (the corrupted step lane moved to 200, the
+   decode_block lanes in another order) give their own verdicts; a step
+   batch with one query round raises ValueError and the next replay is
+   still right; one replay under torch.profiler launches kernel A (or the
+   CIOS kernel) 63 times and the transcript kernel once, and gives the
+   device's busy share; the eager wall against the median of 5 replays,
+   the first call with its warm-up and capture, and the peak device memory
+   with the graphs held;
+7. stage times of the step batch (tools/profile_verify, eager) under both
+   settings; one eager step batch under torch.profiler under each setting:
+   kernel launches seen on the device, the device's busy share of the wall,
+   and each hand-written kernel's device time per batch;
 8. the soundness matrix on step (tools/soundness_matrix) under both
    settings: lane 0 True, every other lane False;
-9. the command line: ``verify`` on decode_block and ``bench`` on step B=256;
-10. the parallel paths (parallel/mesh.py, parallel/distributed.py), each on
-   the step batch (lane 1 corrupted, the same verdicts as verify_batch) with
-   its own launch counts, both the Poseidon-BN254 and the transcript kernel
-   required: the 1-D mesh over every GPU; the (1, 2) proof x query mesh over
-   [cuda:0, cuda:0], which launches the BN254 kernel at B*Q/2 = 3584 and
-   4*B*Q/2 = 14336 lanes, and on it the decode_block batch [valid, bad
-   opening, a leaf corrupted in the last query round, a proof that fails
-   ingest] (must give [True, False, False, False]); verify_batch_distributed
-   in a group of one (NCCL); two ranks as subprocesses, B=128 each, lane 129
-   corrupted (NCCL with a GPU each, else gloo, both on cuda:0); one short run
-   of tools/micro_pb and of tools/scaling_bench (whose sizes above the GPU
+9. the command line: ``verify`` on decode_block and ``bench`` on step B=256
+   (through the graph; its first call, capture included, apart);
+10. the parallel paths (parallel/mesh.py, parallel/distributed.py), each
+   through the compiled verifier, its cache emptied first, on the step
+   batch (lane 1 corrupted, the same verdicts as verify_batch) with its own
+   launch counts (a warm-up and a capture per key), both the Poseidon-BN254
+   and the transcript kernel required, and the wall of a second call
+   (replays): the 1-D mesh over every GPU; the (2, 1) mesh on [cuda:0,
+   cuda:0], whose two proof shards share one graph, with the corrupted lane
+   in the second shard; the (1, 2) proof x query mesh over [cuda:0,
+   cuda:0], which launches the BN254 kernel at B*Q/2 = 3584 and 4*B*Q/2 =
+   14336 lanes, and on it the decode_block batch [valid, bad opening, a
+   leaf corrupted in the last query round, a proof that fails ingest] (must
+   give [True, False, False, False]); verify_batch_distributed in a group
+   of one (NCCL); two ranks as subprocesses, B=128 each, lane 129 corrupted
+   (NCCL with a GPU each, else gloo, both on cuda:0); one short run of
+   tools/micro_pb and of tools/scaling_bench (whose sizes above the GPU
    count are "not measured").
 
 Every phase must pass or the script exits non-zero.  Each kernel launch
-counter is set to 0 just before the path it belongs to and read just after.
+counter is set to 0 just before the path it belongs to and read just after;
+the counters count the wrappers' calls, so a graph's replays, which launch
+the kernels inside the graph, are counted under torch.profiler instead.
 The last line of stdout is a JSON object with the device; the line before it
 lists the kernels with their launches, errors, times and bounds.
 """
@@ -127,8 +146,17 @@ NO_LIBRARY = None  # no PyTorch call computes a Poseidon permutation
 BN_LANES_RISKY = [1, 31, 33, 63, 65, 1000, 8447, 8448, 28673]
 TRANSCRIPT_BATCHES = [1, 3, 17, STEP_BATCH, STEP_BATCH + 1]
 # The main path's launches: step B=256 and decode_block B=4, one Poseidon-BN254
-# launch per leaf-scan step and Merkle level, one transcript launch a batch.
-EXPECTED_BN254_LAUNCHES, EXPECTED_TRANSCRIPT_LAUNCHES = 123, 2
+# launch per leaf-scan step and Merkle level, one transcript launch a batch,
+# in each of the two runs of verify_device at a key's first call (the eager
+# warm-up and the capture); a replay launches them inside the graph.
+CAPTURE_RUNS = 2
+STEP_BN254_LAUNCHES = 63
+EXPECTED_BN254_LAUNCHES = CAPTURE_RUNS * 123
+EXPECTED_TRANSCRIPT_LAUNCHES = CAPTURE_RUNS * 2
+REPLAYS = 5
+# The refed step batch: the corrupted lane moved.
+MOVED_LANE = 200
+DECODE_ORDER = [3, 0, 2, 1]
 # Two ranks of B=128 each: the corrupted lane lies in rank 1's half.
 RANKS_CORRUPT_LANE = STEP_BATCH // 2 + CORRUPT_LANE
 
@@ -328,9 +356,12 @@ def read_counters():
 
 def main_path(impl, dev, spec_step, batch_step, expected, spec_db, batch_db,
               mask_db):
-    """Verify the step and decode_block batches under ``impl``; returns the
-    verdicts, the launch counts of this path alone and the first-call wall."""
+    """Verify the step and decode_block batches under ``impl`` through
+    ``verify_batch``, the compiled cache emptied first so that both keys
+    capture their graphs here; returns the verdicts, the launch counts of
+    this path alone and the first-call wall (warm-up and capture included)."""
     with pb.use_impl(impl):
+        verifier.compiled_verifier.cache_clear()
         torch.cuda.synchronize()
         reset_counters()
         t0 = time.perf_counter()
@@ -360,11 +391,11 @@ def main_path(impl, dev, spec_step, batch_step, expected, spec_db, batch_db,
     return got_db, launches, launches_step, step_s
 
 
-def profile_batch(impl, spec, batch, dev):
-    """One verify_batch under torch.profiler: (wall s, device kernel and
-    copy events seen, device busy s, {kernel: (launches, device s)}).  The
-    CIOS kernel's two kernels are also counted apart: its group kernel runs
-    the launches below 8448 lanes, its lane kernel the larger ones."""
+def profile_batch(impl, fn):
+    """fn() under torch.profiler: (wall s, device kernel and copy events
+    seen, device busy s, {kernel: (launches, device s)}).  The CIOS
+    kernel's two kernels are also counted apart: its group kernel runs the
+    launches below 8448 lanes, its lane kernel the larger ones."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -373,10 +404,11 @@ def profile_batch(impl, spec, batch, dev):
              "poseidon_bn254_cios_group": "poseidon_bn254_cios_kernel_group",
              "poseidon_bn254_cios_lane": "poseidon_bn254_cios_kernel_lane",
              "poseidon_gl_transcript": "transcript_kernel"}
+    torch.cuda.synchronize()
     with pb.use_impl(impl), profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        verifier.verify_batch(spec, batch, device=dev)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -389,8 +421,118 @@ def profile_batch(impl, spec, batch, dev):
     return wall, len(on_device), busy, per_kernel
 
 
-def timed_path(fn):
-    """(fn(), wall s, the kernel launches of fn alone)."""
+def eager(spec, batch, dev, query_shard=None):
+    """The eager verify_device's verdict, plonk_ok and fri_ok on the card."""
+    schedule, d, obs = verifier.prepare(spec, batch, dev)
+    return verifier.verify_device(spec, schedule, d, obs, diagnostics=True,
+                                  query_shard=query_shard)
+
+
+def host(out):
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def wall_s(fn):
+    """(fn(), its wall on the host clock, ended by cuda.synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def compiled_checks(impl, dev, card, spec_step, batch_step, expected,
+                    spec_db, batch_db):
+    """The compiled verifier under ``impl``, its two keys captured by the
+    main path: replay equals eager on both batches; re-fed batches give
+    their own verdicts; a malformed batch raises and the graph still works;
+    kernel launches inside one replay (torch.profiler) and the busy share;
+    the eager and replay walls.  Returns the replay's kernel counts."""
+    walls = {}
+    with pb.use_impl(impl):
+        for name, spec, batch in (("step", spec_step, batch_step),
+                                  ("decode_block", spec_db, batch_db)):
+            replay = host(verifier.verify_on_device(spec, batch, dev))
+            want, walls[name] = wall_s(lambda: host(eager(spec, batch, dev)))
+            for key in want:
+                if not np.array_equal(replay[key], want[key]):
+                    raise AssertionError(f"{impl}: {name} replay {key} "
+                                         f"{replay[key]} differs from eager "
+                                         f"{want[key]}")
+        print(f"{impl}: replay equals eager (verdict, plonk_ok, fri_ok) on "
+              f"step B={STEP_BATCH} and decode_block B=4; eager walls, warm: "
+              f"step {walls['step']:.3f} s, decode_block "
+              f"{walls['decode_block']:.3f} s [{card}]")
+
+        moved = {k: v.copy() for k, v in batch_step.items()}
+        for k in moved:
+            moved[k][[CORRUPT_LANE, MOVED_LANE]] = \
+                batch_step[k][[MOVED_LANE, CORRUPT_LANE]]
+        got = verifier.verify_batch(spec_step, moved, device=dev)
+        if np.nonzero(~got)[0].tolist() != [MOVED_LANE]:
+            raise AssertionError(f"{impl}: refed step batch rejects "
+                                 f"{np.nonzero(~got)[0].tolist()}")
+        order = {k: v[DECODE_ORDER] for k, v in batch_db.items()}
+        got = verifier.verify_batch(spec_db, order, device=dev)
+        if got.tolist() != [DECODE_EXPECTED[i] for i in DECODE_ORDER]:
+            raise AssertionError(f"{impl}: decode_block in order "
+                                 f"{DECODE_ORDER}: {got.tolist()}")
+
+        qkeys = serde.query_axis_keys(spec_step)
+        one_round = {k: (v[:, :1] if k in qkeys else v)
+                     for k, v in batch_step.items()}
+        try:
+            verifier.verify_on_device(spec_step, one_round, dev)
+            raise AssertionError(f"{impl}: a step batch of one query round "
+                                 f"was verified")
+        except ValueError as e:
+            message = str(e)
+        got = verifier.verify_batch(spec_step, batch_step, device=dev)
+        if not np.array_equal(got, expected):
+            raise AssertionError(f"{impl}: after the malformed batch the "
+                                 f"step replay gave another verdict")
+        print(f"{impl}: the same graphs re-fed: step with lane {MOVED_LANE} "
+              f"corrupted rejects lane {MOVED_LANE} alone, decode_block in "
+              f"order {DECODE_ORDER} gives "
+              f"{[DECODE_EXPECTED[i] for i in DECODE_ORDER]}; one query "
+              f"round raises ValueError ({message}), and the next replay is "
+              f"right")
+
+        replays = [wall_s(lambda: verifier.verify_batch(
+            spec_step, batch_step, device=dev))[1] for _ in range(REPLAYS)]
+        entry = verifier.compiled_verifier(spec_step, STEP_BATCH, dev, impl)
+        _, d, obs = verifier.prepare(spec_step, batch_step, dev)
+        graph_only = [wall_s(lambda: entry(d, obs))[1]
+                      for _ in range(REPLAYS)]
+    wall, n_dev, busy, per_kernel = profile_batch(impl, lambda: entry(d, obs))
+    used, unused = (("poseidon_bn254_cios", "poseidon_bn254") if impl == "cios"
+                    else ("poseidon_bn254", "poseidon_bn254_cios"))
+    got = (per_kernel[used][0], per_kernel["poseidon_gl_transcript"][0],
+           per_kernel[unused][0])
+    if got != (STEP_BN254_LAUNCHES, 1, 0):
+        raise AssertionError(f"{impl}: one replay launched {got} of {used}, "
+                             f"the transcript kernel and {unused}, expected "
+                             f"({STEP_BN254_LAUNCHES}, 1, 0)")
+    kern = ", ".join(f"{k} {n} launches {t:.6f} s"
+                     for k, (n, t) in per_kernel.items() if n)
+    print(f"{impl}: step B={STEP_BATCH} eager {walls['step']:.4f} s against "
+          f"verify_batch replays {[round(w, 4) for w in replays]} (median "
+          f"{np.median(replays):.4f} s, {STEP_BATCH / np.median(replays):.2f} "
+          f"proofs/s) and the graph alone on prepared device tensors "
+          f"{[round(w, 4) for w in graph_only]} (median "
+          f"{np.median(graph_only):.4f} s) [{card}]")
+    print(f"{impl}: one replay under torch.profiler: wall {wall:.4f} s, "
+          f"{n_dev} device events, device busy {busy:.4f} s ({busy / wall:.4f} "
+          f"of the wall); {kern} [{card}]")
+    return per_kernel
+
+
+def timed_path(fn, keep_graphs=False):
+    """(fn(), wall s, the kernel launches of fn alone), the compiled cache
+    emptied first unless ``keep_graphs``, so that fn's keys capture their
+    graphs within it."""
+    if not keep_graphs:
+        verifier.compiled_verifier.cache_clear()
     torch.cuda.synchronize()
     reset_counters()
     t0 = time.perf_counter()
@@ -410,36 +552,74 @@ def check_launches(what, launches, bn254, transcript):
 
 def parallel_paths(dev, card, spec_step, batch_step, expected, per_verify):
     """The mesh and distributed paths on the step batch (and the (1, 2)
-    mesh on the query-shard decode_block lanes); returns each path's
-    launches.  ``per_verify``: kernel A's launches of one verification of
-    a step batch and of a decode_block batch, from the main path."""
+    mesh on the query-shard decode_block lanes), each through the compiled
+    verifier, its cache emptied first; returns each path's launches (a
+    key's warm-up and capture).  ``per_verify``: kernel A's launches of one
+    verification of a step batch and of a decode_block batch."""
     n_gpu = torch.cuda.device_count()
     bn_step, bn_db = per_verify
     launches = {}
 
-    def same(got, what):
-        if not np.array_equal(got, expected):
+    def same(got, what, want=expected):
+        if not np.array_equal(got, want):
             raise AssertionError(f"{what}: step verdicts differ from "
                                  f"verify_batch in lanes "
-                                 f"{np.nonzero(got != expected)[0].tolist()}")
+                                 f"{np.nonzero(got != want)[0].tolist()}")
+
+    def second(fn):
+        # the same keys again: replays only, no launch through a wrapper
+        out, wall, counts = timed_path(fn, keep_graphs=True)
+        if any(counts.values()):
+            raise AssertionError(f"a second call launched through the "
+                                 f"wrappers: {counts}")
+        return out, wall
 
     mesh = pmesh.make_mesh()
-    got, wall, launches["mesh_1d"] = timed_path(
-        lambda: pmesh.verify_batch_sharded(spec_step, batch_step, mesh))
+    run = lambda: pmesh.verify_batch_sharded(spec_step, batch_step, mesh)
+    got, first, launches["mesh_1d"] = timed_path(run)
+    again, wall = second(run)
     same(got, "1-D mesh")
-    check_launches("1-D mesh", launches["mesh_1d"], n_gpu * bn_step, n_gpu)
+    same(again, "1-D mesh, second call")
+    check_launches("1-D mesh", launches["mesh_1d"],
+                   CAPTURE_RUNS * n_gpu * bn_step, CAPTURE_RUNS * n_gpu)
     print(f"1-D mesh over {n_gpu} GPU(s): step B={STEP_BATCH}, lane "
-          f"{CORRUPT_LANE} alone rejected; wall per batch {wall:.3f} s; "
-          f"launches {launches['mesh_1d']} [{card}]")
+          f"{CORRUPT_LANE} alone rejected; wall per batch {first:.3f} s "
+          f"first call (capture), {wall:.3f} s second call; launches "
+          f"{launches['mesh_1d']} [{card}]")
+
+    # two proof shards of one key on one card share a graph; the corrupted
+    # lane lies in the second
+    mesh21 = pmesh.make_mesh_2d([dev, dev], (2, 1))
+    batch_r = {k: v.copy() for k, v in batch_step.items()}
+    for k in batch_r:
+        batch_r[k][[CORRUPT_LANE, RANKS_CORRUPT_LANE]] = \
+            batch_step[k][[RANKS_CORRUPT_LANE, CORRUPT_LANE]]
+    want_r = np.ones(STEP_BATCH, bool)
+    want_r[RANKS_CORRUPT_LANE] = False
+    run = lambda: pmesh.verify_batch_sharded_2d(spec_step, batch_r, mesh21)
+    got, first, launches["mesh_2x1"] = timed_path(run)
+    again, wall = second(run)
+    same(got, "(2, 1) mesh", want_r)
+    same(again, "(2, 1) mesh, second call", want_r)
+    check_launches("(2, 1) mesh", launches["mesh_2x1"],
+                   CAPTURE_RUNS * bn_step, CAPTURE_RUNS)
+    print(f"(2, 1) proof mesh on [{dev}, {dev}] (two shards of B="
+          f"{STEP_BATCH // 2}, one graph): lane {RANKS_CORRUPT_LANE} alone "
+          f"rejected; wall per batch {first:.3f} s first call, {wall:.3f} s "
+          f"second call; launches {launches['mesh_2x1']} [{card}]")
 
     mesh2 = pmesh.make_mesh_2d([dev, dev], (1, 2))
-    got, wall, launches["mesh_2d"] = timed_path(
-        lambda: pmesh.verify_batch_sharded_2d(spec_step, batch_step, mesh2))
+    run = lambda: pmesh.verify_batch_sharded_2d(spec_step, batch_step, mesh2)
+    got, first, launches["mesh_2d"] = timed_path(run)
+    again, wall = second(run)
     same(got, "(1, 2) mesh")
-    check_launches("(1, 2) mesh", launches["mesh_2d"], 2 * bn_step, 2)
+    same(again, "(1, 2) mesh, second call")
+    check_launches("(1, 2) mesh", launches["mesh_2d"],
+                   CAPTURE_RUNS * 2 * bn_step, CAPTURE_RUNS * 2)
     print(f"(1, 2) proof x query mesh on [{dev}, {dev}]: step B={STEP_BATCH}, "
-          f"lane {CORRUPT_LANE} alone rejected; wall per batch {wall:.3f} s; "
-          f"launches {launches['mesh_2d']} [{card}]")
+          f"lane {CORRUPT_LANE} alone rejected; wall per batch {first:.3f} s "
+          f"first call, {wall:.3f} s second call; launches "
+          f"{launches['mesh_2d']} [{card}]")
     spec_q, raws, vraw = query_shard_lanes(TESTDATA / "decode_block")
     batch_q, _, errors = serde.ingest_batch(spec_q, [(r, vraw) for r in raws])
     if list(errors) != [3]:
@@ -452,10 +632,11 @@ def parallel_paths(dev, card, spec_step, batch_step, expected, per_verify):
             or shards[2] != [True, False] or shards[3] != [True, True]):
         raise AssertionError(f"(1, 2) mesh: decode_block {out}")
     check_launches("(1, 2) mesh, decode_block",
-                   launches["mesh_2d_decode_block"], 2 * bn_db, 2)
+                   launches["mesh_2d_decode_block"],
+                   CAPTURE_RUNS * 2 * bn_db, CAPTURE_RUNS * 2)
     print(f"(1, 2) mesh: decode_block [valid, bad opening, last-round leaf, "
           f"quarantined]: {out['verdict'].tolist()}, per query shard "
-          f"{shards}; wall {wall:.3f} s [{card}]")
+          f"{shards}; wall {wall:.3f} s (capture) [{card}]")
 
     distributed.initialize("nccl", f"tcp://localhost:{dist_worker.free_port()}",
                            1, 0, dev)
@@ -464,7 +645,7 @@ def parallel_paths(dev, card, spec_step, batch_step, expected, per_verify):
         (got, n_accept), wall, launches["distributed_1"] = timed_path(
             lambda: distributed.verify_batch_distributed(spec_step,
                                                          batch_step, dev))
-        (again, _), wall2, _ = timed_path(
+        (again, _), wall2 = second(
             lambda: distributed.verify_batch_distributed(spec_step,
                                                          batch_step, dev))
     finally:
@@ -474,10 +655,10 @@ def parallel_paths(dev, card, spec_step, batch_step, expected, per_verify):
     if n_accept != STEP_BATCH - 1:
         raise AssertionError(f"distributed, world size 1: n_accept {n_accept}")
     check_launches("distributed, world size 1", launches["distributed_1"],
-                   bn_step, 1)
+                   CAPTURE_RUNS * bn_step, CAPTURE_RUNS)
     print(f"verify_batch_distributed, world size 1 (nccl): step B="
           f"{STEP_BATCH}, n_accept {n_accept}; wall per batch {wall:.3f} s "
-          f"first call, {wall2:.3f} s second call [{card}]")
+          f"first call (capture), {wall2:.3f} s second call [{card}]")
 
     argv = ["--circuit", str(TESTDATA / "step"),
             "--local-batch", str(STEP_BATCH // 2),
@@ -494,15 +675,16 @@ def parallel_paths(dev, card, spec_step, batch_step, expected, per_verify):
             raise AssertionError(f"two ranks: rank {r['rank']} verdicts "
                                  f"wrong or n_accept {r['n_accept']}")
         check_launches(f"two ranks: rank {r['rank']}", r["launches"],
-                       bn_step, 1)
+                       CAPTURE_RUNS * bn_step, CAPTURE_RUNS)
     launches["distributed_2_ranks"] = {
         k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
     print(f"verify_batch_distributed, two ranks as subprocesses "
           f"({ranks[0]['backend']}; {', '.join(r['device'] for r in ranks)}): "
           f"B={STEP_BATCH // 2} each, lane {RANKS_CORRUPT_LANE} alone "
-          f"rejected on both, n_accept {STEP_BATCH - 1}; wall per batch (first, "
-          f"second call) rank 0 {ranks[0]['seconds']}, rank 1 "
-          f"{ranks[1]['seconds']} s; job {job_s:.1f} s with start-up [{card}]")
+          f"rejected on both, n_accept {STEP_BATCH - 1}; wall per batch (first "
+          f"call with capture, second call) rank 0 {ranks[0]['seconds']}, "
+          f"rank 1 {ranks[1]['seconds']} s; job {job_s:.1f} s with start-up "
+          f"[{card}]")
     return launches
 
 
@@ -524,6 +706,7 @@ def tool_runs(dev, card):
 
     n_gpu = torch.cuda.device_count()
     buf = io.StringIO()
+    verifier.compiled_verifier.cache_clear()  # its key captures here
     reset_counters()
     with contextlib.redirect_stdout(buf):
         rc = scaling_bench.main(["--sizes", f"1,{n_gpu + 1}", "--iters", "1"])
@@ -623,48 +806,54 @@ def main():
 
     torch.cuda.reset_peak_memory_stats(dev)
     got_db, launches, launches_step, step_s = main_path("mxu", *args)
-    peak = torch.cuda.max_memory_allocated(dev)
-    # the first call pays one-time costs (constant tables, allocator warm-up)
-    t0 = time.perf_counter()
-    again = verifier.verify_batch(spec_step, batch_step, device=dev)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    if not np.array_equal(again, expected):
-        raise AssertionError("step batch: second call gave another verdict")
+    entry = verifier.compiled_verifier(spec_step, STEP_BATCH, dev, "mxu")
     print(f"mxu: step B={STEP_BATCH}: lane {CORRUPT_LANE} rejected, "
-          f"{STEP_BATCH - 1} accepted; wall per verified batch {step_s:.3f} s "
-          f"first call, {warm_s:.3f} s second call "
-          f"({STEP_BATCH / warm_s:.2f} proofs/s) [{card}]")
+          f"{STEP_BATCH - 1} accepted; first call {step_s:.3f} s, of it the "
+          f"eager warm-up {entry.warmup_s:.3f} s and the capture with "
+          f"instantiation {entry.capture_s:.3f} s [{card}]")
     print(f"mxu: decode_block [valid, bad opening, bad leaf, bad pow]: "
           f"{got_db['verdict'].tolist()}, plonk_ok "
           f"{got_db['plonk_ok'].tolist()}, fri_ok {got_db['fri_ok'].tolist()}")
-    print(f"mxu: launches on the main path: {launches}; of them the step "
-          f"batch: {launches_step}")
-    print(f"mxu: peak device memory: {peak / 2**20:.1f} MiB [{card}]")
+    print(f"mxu: launches on the main path (the Python counters: each key's "
+          f"eager warm-up and capture, no replay): {launches}; of them the "
+          f"step batch: {launches_step}")
+    # -- 4. the compiled verifier: replay against eager, re-fed and
+    #       malformed batches, launches inside a replay, walls
+    replay_kernels = {"mxu": compiled_checks(
+        "mxu", dev, card, spec_step, batch_step, expected, spec_db, batch_db)}
 
     got_db_c, launches_c, launches_c_step, step_c_s = main_path("cios", *args)
     for key in ("verdict", "plonk_ok", "fri_ok"):
         if not np.array_equal(got_db_c[key], got_db[key]):
             raise AssertionError(f"cios: decode_block {key} differs from mxu")
+    entry_c = verifier.compiled_verifier(spec_step, STEP_BATCH, dev, "cios")
     print(f"cios: step B={STEP_BATCH}: lane {CORRUPT_LANE} rejected, "
-          f"{STEP_BATCH - 1} accepted, wall {step_c_s:.3f} s; decode_block "
-          f"{got_db_c['verdict'].tolist()}, as under mxu [{card}]")
+          f"{STEP_BATCH - 1} accepted, first call {step_c_s:.3f} s (warm-up "
+          f"{entry_c.warmup_s:.3f} s, capture {entry_c.capture_s:.3f} s); "
+          f"decode_block {got_db_c['verdict'].tolist()}, as under mxu [{card}]")
     print(f"cios: launches on the path: {launches_c}; of them the step "
           f"batch: {launches_c_step}")
 
-    # -- 4. stage times (tools/profile_verify), in turns
+    replay_kernels["cios"] = compiled_checks(
+        "cios", dev, card, spec_step, batch_step, expected, spec_db, batch_db)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"peak device memory with the graphs held (step B={STEP_BATCH} and "
+          f"decode_block B=4, eager runs beside them): "
+          f"{peak / 2**20:.1f} MiB [{card}]")
+
+    # -- 5. stage times (tools/profile_verify, eager), in turns
     for impl in ("mxu", "cios", "cios", "mxu"):
         with pb.use_impl(impl):
             st = profile_verify.profile_stages(spec_step, batch_step, dev)
         if not np.array_equal(st.pop("verdicts"), expected):
             raise AssertionError(f"{impl}: stage probe gave other verdicts")
-        print(f"stages {impl} step B={STEP_BATCH} (s): "
+        print(f"stages {impl} step B={STEP_BATCH} (s, eager): "
               f"{json.dumps(st)} [{card}]")
 
-    # -- 5. one profiled step batch under each setting
+    # -- 5b. one eager step batch under the profiler under each setting
     for impl in ("mxu", "cios"):
-        wall, n_dev, busy, per_kernel = profile_batch(impl, spec_step,
-                                                      batch_step, dev)
+        wall, n_dev, busy, per_kernel = profile_batch(
+            impl, lambda: eager(spec_step, batch_step, dev))
         used = "poseidon_bn254_cios" if impl == "cios" else "poseidon_bn254"
         need = [used] + ([f"{used}_group", f"{used}_lane"]
                          if impl == "cios" else [])
@@ -674,8 +863,8 @@ def main():
                                      f"launch")
         kern = ", ".join(f"{k} {n} launches {t:.6f} s"
                          for k, (n, t) in per_kernel.items() if n)
-        print(f"profile {impl} step B={STEP_BATCH}: wall {wall:.4f} s under "
-              f"the profiler, {n_dev} device events, device busy "
+        print(f"profile {impl} step B={STEP_BATCH}, eager: wall {wall:.4f} s "
+              f"under the profiler, {n_dev} device events, device busy "
               f"{busy:.4f} s ({busy / wall:.4f} of the wall); {kern} [{card}]")
 
     # -- 6. soundness matrix on step
@@ -694,8 +883,9 @@ def main():
              "--batch", str(STEP_BATCH), "--iters", "3"], card)
 
     # -- 8. the parallel paths and their tools
-    per_verify = (launches_step["poseidon_bn254"],
-                  launches["poseidon_bn254"] - launches_step["poseidon_bn254"])
+    per_verify = (launches_step["poseidon_bn254"] // CAPTURE_RUNS,
+                  (launches["poseidon_bn254"]
+                   - launches_step["poseidon_bn254"]) // CAPTURE_RUNS)
     par_launches = parallel_paths(dev, card, spec_step, batch_step, expected,
                                   per_verify)
     tool_launches, _ = tool_runs(dev, card)
@@ -727,7 +917,9 @@ def main():
          "lanes": lanes[-1], "ms": float(np.mean(bn_ms[lanes[-1]]["a"])),
          "plain_ms": bn_plain[lanes[-1]]["a"],
          "bound_ms": bn_bound, "bound_by": bn_by, "bound_form": bn_form,
-         "library_ms": NO_LIBRARY, "at_smaller_launch": at_small("a"),
+         "library_ms": NO_LIBRARY,
+         "launches_in_one_replay": replay_kernels["mxu"]["poseidon_bn254"][0],
+         "at_smaller_launch": at_small("a"),
          "at_parallel_launches": [at_lanes(n, "a") for n in par_lanes],
          "launches_on_parallel_paths": on_parallel_paths("poseidon_bn254")},
         {"name": "poseidon_bn254_cios", "route": "cuda",
@@ -738,7 +930,10 @@ def main():
          "lanes": lanes[-1], "ms": float(np.mean(bn_ms[lanes[-1]]["cios"])),
          "plain_ms": bn_plain[lanes[-1]]["cios"],
          "bound_ms": bn_bound, "bound_by": bn_by, "bound_form": bn_form,
-         "library_ms": NO_LIBRARY, "at_smaller_launch": at_small("cios"),
+         "library_ms": NO_LIBRARY,
+         "launches_in_one_replay":
+             replay_kernels["cios"]["poseidon_bn254_cios"][0],
+         "at_smaller_launch": at_small("cios"),
          "at_parallel_launches": [at_lanes(n, "cios") for n in par_lanes],
          "launches_on_parallel_paths": on_parallel_paths(
              "poseidon_bn254_cios")},
@@ -749,6 +944,8 @@ def main():
          "ms": tr_ms, "plain_ms": tr_plain_ms,
          "bound_ms": tr_bound, "bound_by": tr_by, "bound_form": tr_form,
          "library_ms": NO_LIBRARY,
+         "launches_in_one_replay":
+             replay_kernels["mxu"]["poseidon_gl_transcript"][0],
          "launches_on_parallel_paths": on_parallel_paths(
              "poseidon_gl_transcript")},
     ]

@@ -11,12 +11,16 @@ Counterpart of ``plonky2_tpu/cli.py`` (the reference's benchmark.go analog):
     python -m plonky2_tpu_torch.cli ... --out FILE     (also save the report)
 
 ``verify`` and ``bench`` run on the GPU unless ``--cpu`` is given; without a
-GPU they exit non-zero.  ``bench`` times ``verifier.verify_device`` on
-tensors already on the device, each call ended by ``torch.cuda.synchronize``;
-its first call, which pays one-time costs (kernel build and load, constant
-tables), is reported as ``first_call_s`` where the JAX CLI reports
-``compile_s``.  ``inspect`` prints the static cost model.  The
-Poseidon-BN254 kernel follows ``PLONKY2_TPU_PB_IMPL`` (``mxu`` or ``cios``).
+GPU they exit non-zero.  ``bench`` times the verifier on tensors already on
+the device, each call ended by ``torch.cuda.synchronize``: on the GPU the
+compiled verifier of the batch's key (``verifier.compiled_verifier``, one
+CUDA graph), on the CPU ``verifier.verify_device``.  Its first call, which
+pays one-time costs (kernel build and load, constant tables, on the GPU the
+eager warm-up and the graph's capture), is reported as ``first_call_s``
+where the JAX CLI reports ``compile_s``, with ``warmup_s`` and ``capture_s``
+(capture and instantiation) beside it on the GPU.  ``inspect`` prints the
+static cost model.  The Poseidon-BN254 kernel follows
+``PLONKY2_TPU_PB_IMPL`` (``mxu`` or ``cios``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import time
 import torch
 
 from . import verifier
+from .hash import poseidon_bn254 as pb
 from .proof import serde
 from .proof.spec import load_circuit_spec
 from .utils.profiling import StageTimer, flops_report, trace
@@ -72,9 +77,16 @@ def cmd_bench(args, device):
     spec, proof = _load(args.circuit)
     batch = serde.stack_proofs([proof] * args.batch)
     schedule, dev, obs = verifier.prepare(spec, batch, device)
+    entry = None
+    if device.type == "cuda":
+        entry = verifier.compiled_verifier(spec, args.batch, device,
+                                           pb.kernel_impl())
 
     def run():
-        out = verifier.verify_device(spec, schedule, dev, obs)
+        if entry is None:
+            out = verifier.verify_device(spec, schedule, dev, obs)
+        else:
+            out = entry(dev, obs)["verdict"]
         _sync(device)
         return out
 
@@ -95,6 +107,8 @@ def cmd_bench(args, device):
         "circuit": args.circuit, "batch": args.batch,
         "device": verifier.device_name(device),
         "first_call_s": round(first_call_s, 3),
+        **({} if entry is None else {"warmup_s": round(entry.warmup_s, 3),
+                                     "capture_s": round(entry.capture_s, 3)}),
         "steady_state_s": round(best, 6),
         "proofs_per_sec": round(args.batch / best, 2)})
     print(report)

@@ -13,10 +13,12 @@ positions, as in the reference; each digit may grow to ~2^61 before
 2^64 = 2^32 - 1 and 2^96 = -1 (mod p).
 
 Every function takes the device of its inputs; constants are numpy arrays
-moved next to the operand that uses them.
+moved next to the operand that uses them once per device (``device_table``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -35,11 +37,29 @@ MASK32 = 0xFFFFFFFF
 I64 = torch.int64
 
 
+def device_table(x, device, dtype=None):
+    """A constant array (numpy, or nested python ints) as a tensor on
+    ``device``, copied from host memory once per content and device and
+    shared by every caller, who never writes to it.  A copy from host memory
+    waits for the device and cannot be captured in a CUDA graph, so after a
+    first verification none is left on the path.  Never evicted: a captured
+    graph reads the table at its address."""
+    arr = np.ascontiguousarray(np.asarray(x, dtype=dtype))
+    return _device_table(arr.dtype.str, arr.shape, arr.tobytes(),
+                         torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_table(dtype, shape, data, device):
+    arr = np.frombuffer(data, dtype=dtype).reshape(shape)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
 def as_tensor(x, like):
     """numpy / python constant -> int64 tensor on ``like``'s device."""
     if isinstance(x, torch.Tensor):
         return x.to(like.device)
-    return torch.as_tensor(np.asarray(x, dtype=np.int64), device=like.device)
+    return device_table(x, like.device, np.int64)
 
 
 # ---------------------------------------------------------------------------

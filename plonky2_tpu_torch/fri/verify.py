@@ -69,7 +69,7 @@ def _hash_leaves_scan(packed, slot_mask):
     T = packed.shape[-3]
     state = torch.zeros(packed.shape[:-3] + (4, 16), dtype=packed.dtype,
                         device=packed.device)
-    smask = torch.as_tensor(np.asarray(slot_mask), device=packed.device)
+    smask = gl.device_table(slot_mask, packed.device)
     for t in range(T):
         rest = torch.where(smask[t][:, None], packed[..., t, :, :],
                            state[..., 1:, :])
@@ -106,20 +106,28 @@ def query_rounds(spec, query_shard=None):
     return k * Q // n, (k + 1) * Q // n
 
 
+def check_query_rounds(spec, dev, query_shard=None):
+    """Raise ValueError unless the tensor dict ``dev`` holds the query rounds
+    of ``query_rounds(spec, query_shard)``; returns their (start, stop).  The
+    JAX package takes Q from the data; here a batch with another count is
+    malformed, not a proof to judge."""
+    start, stop = query_rounds(spec, query_shard)
+    Q = dev["init_siblings"].shape[1]
+    if Q != stop - start:
+        raise ValueError(f"batch has {Q} FRI query rounds, expected "
+                         f"{stop - start} of the circuit's "
+                         f"{spec.num_query_rounds} (query shard {query_shard})")
+    return start, stop
+
+
 def verify_fri(spec, dev, challenges, verdict, query_shard=None):
     """Verify the FRI opening proof; returns the updated (B,) verdict.
 
     With ``query_shard=(k, n)``, ``dev`` holds only the query rounds of
     ``query_rounds(spec, query_shard)`` and only those rounds are checked;
     the verdict is then this shard's share, to be ANDed over the n shards."""
-    start, stop = query_rounds(spec, query_shard)
-    Q = dev["init_siblings"].shape[1]
-    if Q != stop - start:
-        # the JAX package takes Q from the data; here a batch with another
-        # count is malformed, not a proof to judge
-        raise ValueError(f"batch has {Q} FRI query rounds, expected "
-                         f"{stop - start} of the circuit's "
-                         f"{spec.num_query_rounds} (query shard {query_shard})")
+    start, stop = check_query_rounds(spec, dev, query_shard)
+    Q = stop - start
     if query_shard is not None:
         challenges = dict(challenges, query_indices=tuple(
             t[:, start:stop] for t in challenges["query_indices"]))
@@ -256,7 +264,7 @@ def _compute_evaluation(x, within_bits, arity_bits, evals, beta):
     perm = np.asarray([bitrev(i) for i in range(arity)])
     inv_perm = np.zeros(arity, dtype=np.int64)
     inv_perm[perm] = np.arange(arity)
-    y_st = qe.index(evals, (Ellipsis, torch.as_tensor(inv_perm, device=device)))
+    y_st = qe.index(evals, (Ellipsis, gl.device_table(inv_perm, device)))
 
     # cosetStart = x * gInv^bitrev(within_idx)
     start = gl.ones(within_bits[0].shape, device)

@@ -226,7 +226,7 @@ class CosetInterpolationGate:
                 active[j, c] = True
 
         v0 = _ea_cols(wires, start_values, n)                # ea (B, n)
-        vidx_t = torch.as_tensor(vidx, device=like.device)
+        vidx_t = gl.device_table(vidx, like.device)
         val = (qe.index(v0[0], (Ellipsis, vidx_t)),
                qe.index(v0[1], (Ellipsis, vidx_t)))          # ea (B, deg, C)
 
@@ -238,7 +238,7 @@ class CosetInterpolationGate:
         pr = (qe.concat([o1, inter_prod[0]]), qe.concat([z1, inter_prod[1]]))
 
         pt = (_col(shifted_pt[0]), _col(shifted_pt[1]))      # ea (B, 1)
-        act = torch.as_tensor(active, device=like.device)
+        act = gl.device_table(active, like.device)
         for j in range(deg):
             x = gl.const_like(gl.const_array(xs[j].tolist()), like)
             wgt = gl.const_like(gl.const_array(ws[j].tolist()), like)
@@ -342,11 +342,11 @@ class RandomAccessGate:
 
         access = _ws(wires, slice(0, stride * C, stride))     # (B, C)
         claimed = _ws(wires, slice(1, stride * C, stride))    # (B, C)
-        item_idx = torch.as_tensor([[stride * c + 2 + i for i in range(V)]
-                                    for c in range(C)], device=like.device)
+        item_idx = gl.device_table([[stride * c + 2 + i for i in range(V)]
+                                    for c in range(C)], like.device)
         items = _ws(wires, (Ellipsis, item_idx))              # (B, C, V)
-        bit_idx = torch.as_tensor([[num_routed + c * nb + i for i in range(nb)]
-                                   for c in range(C)], device=like.device)
+        bit_idx = gl.device_table([[num_routed + c * nb + i for i in range(nb)]
+                                   for c in range(C)], like.device)
         bits = _ws(wires, (Ellipsis, bit_idx))                # (B, C, nb)
 
         bools = qe.sub(qe.mul(bits, bits), bits)
@@ -527,7 +527,7 @@ class PoseidonGate:
         out = []
 
         def idx(rows):
-            return torch.as_tensor(rows, device=like.device)
+            return gl.device_table(rows, like.device)
 
         swap = _w(wires, self.w_swap)
         one = qe.ones((B,), like.device)

@@ -70,7 +70,7 @@ def _sbox(x):
 def _mds_layer(state):
     """Circulant MDS, state GL (..., 12).  Entries are <= 49, so each 32-bit
     half times the matrix sums below 2^42 and one reduction suffices."""
-    a = torch.as_tensor(consts()["mds"], device=state[0].device)
+    a = gl.device_table(consts()["mds"], state[0].device)
     lo = (state[0][..., None, :] * a).sum(-1)
     hi = (state[1][..., None, :] * a).sum(-1)
     return gl.reduce_digits([lo, torch.zeros_like(lo), hi])

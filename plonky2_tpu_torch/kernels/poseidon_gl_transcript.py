@@ -44,18 +44,11 @@ def _with_pi_hash(schedule, obs, pi_hash):
 
 def schedule_tables(schedule, device):
     """The schedule's gather index (flat int64) and mask ((n_perms, 8)
-    uint8) on ``device``, copied once per schedule and device: a copy from
-    host memory waits for the device, so it stays off the per-batch path."""
-    return _schedule_tables(schedule.gather_idx.astype(np.int64).tobytes(),
-                            schedule.mask.astype(np.uint8).tobytes(),
-                            torch.device(device))
-
-
-@functools.lru_cache(maxsize=32)
-def _schedule_tables(gather, mask, device):
-    return (torch.frombuffer(bytearray(gather), dtype=torch.int64).to(device),
-            torch.frombuffer(bytearray(mask), dtype=torch.uint8)
-            .reshape(-1, RATE).to(device))
+    uint8) on ``device``, copied once per schedule and device
+    (``goldilocks.device_table``): a copy from host memory waits for the
+    device, so it stays off the per-batch path."""
+    return (gl.device_table(schedule.gather_idx.reshape(-1), device, np.int64),
+            gl.device_table(schedule.mask.reshape(-1, RATE), device, np.uint8))
 
 
 def gather_absorb(schedule, obs, pi_hash):

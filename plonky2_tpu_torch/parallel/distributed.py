@@ -1,9 +1,10 @@
 """Multi-process verification on ``torch.distributed``: one process per GPU.
 
 Counterpart of ``plonky2_tpu/parallel/distributed.py``, and the port's
-scale-out path: each rank drives its own device from its own Python thread,
-so the host's launch rate grows with the ranks (a mesh of several GPUs in one
-process shares one thread, ``parallel/mesh.py``).
+scale-out path across processes: each rank drives its own device from its
+own process, so the host work around each replay (``verifier.prepare``,
+the copies) runs on as many cores as there are ranks (a mesh of several GPUs
+in one process prepares its shards on one thread, ``parallel/mesh.py``).
 
 - ``initialize()`` wires the process group; by default from the variables
   ``torchrun`` sets (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
@@ -12,11 +13,16 @@ process shares one thread, ``parallel/mesh.py``).
   caller names another, or the CPU.  The backend follows the device: NCCL
   for CUDA ranks, gloo for CPU ranks.  Ranks that share one GPU must name
   gloo, since NCCL refuses two ranks on one card.
-- Each rank feeds only its own shard (``feed_local_batch``); no rank builds
-  the global batch.
-- The only cross-rank traffic: an all_gather of the local batch sizes (they
-  must be equal), an all_gather of the verdict bits and an all_reduce of the
-  accept count.  Verification is read-only.
+- Each rank verifies only its own shard; no rank builds the global batch
+  (the JAX ``feed_local_batch`` has no counterpart).  A CUDA rank verifies
+  it through the compiled verifier (``verifier.verify_on_device``, one CUDA
+  graph per key); the collectives stay outside the graph.
+- The only cross-rank traffic: an all_gather of each rank's local batch
+  size and of whether its batch has the circuit's shape
+  (``serde.batch_error``), before any rank verifies, so that a malformed
+  batch on one rank makes every rank raise rather than leave the others
+  waiting in a collective; an all_gather of the verdict bits and an
+  all_reduce of the accept count.  Verification is read-only.
 
     torchrun --nproc-per-node N my_verifier.py   # in it:
         distributed.initialize()
@@ -32,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from .. import verifier
+from ..proof import serde
 
 
 def local_device(device=None):
@@ -74,32 +81,36 @@ def _all_gather(t):
     return torch.cat(parts)
 
 
-def feed_local_batch(spec, local_batch, device=None):
-    """This rank's shard on its device: (schedule, tensor dict, observed
-    sequence), as ``verifier.prepare`` makes them."""
-    return verifier.prepare(spec, local_batch, local_device(device))
-
-
 def verify_batch_distributed(spec, local_batch, device=None, valid_mask=None):
     """Verify this rank's ``local_batch``; every rank gets all verdicts.
 
-    Every rank passes a local batch of the same size, or every rank raises
-    ``ValueError``.  The global layout is [rank 0 lanes | rank 1 lanes |
-    ...].  The batch's ingest mask and the caller's ``valid_mask`` ((B_local,)
-    bool) make this rank's quarantined lanes False before the gather.
+    Every rank passes a local batch of the same size in the circuit's shape
+    (every key's shape and dtype, the query-round count among them, as
+    ``serde.batch_error`` checks), or every rank raises ``ValueError``
+    before any verifies (a malformed batch counts as size -1).  The global layout is [rank 0 lanes | rank 1 lanes
+    | ...].  The batch's ingest mask and the caller's ``valid_mask``
+    ((B_local,) bool) make this rank's quarantined lanes False before the
+    gather.
 
     Returns (verdicts, n_accept): the global (B_local * world,) bool numpy
     vector, the same on every rank, and the number of accepted lanes."""
     device = local_device(device)
     cdev = _collective_device(device)
-    b_local = local_batch["pow_witness"].shape[0]
-    sizes = _all_gather(torch.tensor([b_local], dtype=torch.int64,
-                                     device=cdev)).tolist()
-    if len(set(sizes)) != 1:
-        raise ValueError(f"local batch sizes differ across ranks: {sizes}; "
-                         f"every rank must pass the same number of proofs")
-    schedule, dev, obs = feed_local_batch(spec, local_batch, device)
-    verdict = verifier.verify_device(spec, schedule, dev, obs).cpu().numpy()
+    # read nothing that could raise before the gather: a rank that raised
+    # alone would leave the others waiting in it
+    error = serde.batch_error(spec, local_batch)
+    b_local = -1 if error else len(local_batch["pow_witness"])
+    gathered = _all_gather(torch.tensor([b_local, error is None],
+                                        dtype=torch.int64, device=cdev))
+    sizes, shaped = gathered.reshape(-1, 2).T.tolist()
+    if len(set(sizes)) != 1 or not all(shaped):
+        raise ValueError(
+            f"local batch sizes {sizes}, in the circuit's shape "
+            f"{[bool(x) for x in shaped]}: every rank must pass the same "
+            f"number of proofs in the circuit's shape"
+            + (f" (this rank: {error})" if error else ""))
+    verdict = verifier.verify_on_device(spec, local_batch,
+                                        device)["verdict"].cpu().numpy()
     verdict = verifier.apply_valid_masks(verdict, local_batch, valid_mask)
     bits = _all_gather(torch.as_tensor(verdict.astype(np.uint8), device=cdev))
     n_accept = torch.tensor([int(verdict.sum())], dtype=torch.int64,

@@ -9,12 +9,16 @@ shard rejects it (the JAX mesh's psum of reject bits, here an AND on the
 host).  Each shard is prepared and verified on its own device; the verdicts
 are gathered to the host.
 
-One thread issues every shard's work in turn, and the verifier's launches
-are many and small (a step batch issues hundreds of thousands), so a mesh of
-several GPUs in one process is paced by that thread.  Scaling out is one
-process per GPU (``parallel/distributed.py``).  A mesh may name one device
-more than once: on the CPU that stands in for the JAX tests' virtual
-devices, and on one GPU it runs several query shards.
+On GPUs each shard runs the compiled verifier of its key
+(``verifier.verify_on_device``: one CUDA graph per spec, shard size,
+device, kernel and query window), and every shard's replay is issued before
+any verdict is read, so shards on different cards overlap, as one
+``shard_map`` program does.  Shards with one key (a device named twice,
+proof shards of one size) share a graph; each replay's outputs are cloned
+before the next.  On the CPU one thread runs every shard's eager
+``verify_device`` in turn.  A mesh may name one device more than once: on
+the CPU that stands in for the JAX tests' virtual devices, and on one GPU
+it runs several shards.
 
 Usage:
     mesh = make_mesh()                     # every GPU on axis "proof"
@@ -33,6 +37,7 @@ import torch
 
 from .. import verifier
 from ..fri.verify import query_rounds
+from ..proof import serde
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -111,17 +116,6 @@ def verify_batch_sharded(spec, proof_batch, mesh, valid_mask=None):
     return verify_batch_sharded_2d(spec, proof_batch, column, valid_mask)
 
 
-# serde keys whose axis 1 (after batching) is the FRI query-round axis
-_QUERY_AXIS_KEYS = ("init_leaves_0", "init_leaves_1", "init_leaves_2",
-                    "init_leaves_3", "init_leaf_packed", "init_siblings")
-
-
-def _query_keys(spec):
-    return _QUERY_AXIS_KEYS + tuple(
-        f"step{j}_{part}" for j in range(len(spec.reduction_arity_bits))
-        for part in ("evals", "leaf_packed", "siblings"))
-
-
 def verify_batch_sharded_2d(spec, proof_batch, mesh, valid_mask=None,
                             diagnostics=False):
     """Verify with the proof batch split over the mesh's "proof" axis and
@@ -136,17 +130,16 @@ def verify_batch_sharded_2d(spec, proof_batch, mesh, valid_mask=None,
     n_proof, n_query = mesh.shape["proof"], mesh.shape["query"]
     windows = [query_rounds(spec, (j, n_query)) for j in range(n_query)]
     padded, B = pad_batch(proof_batch, n_proof)
-    qkeys = set(_query_keys(spec))
+    qkeys = set(serde.query_axis_keys(spec))
     shards = np.empty((n_proof, n_query), dtype=object)
     for i in range(n_proof):
         lanes = _lanes(padded, i, n_proof)
         for j, (start, stop) in enumerate(windows):
             part = {k: (v[:, start:stop] if k in qkeys else v)
                     for k, v in lanes.items()}
-            schedule, dev, obs = verifier.prepare(spec, part,
-                                                  mesh.devices[i, j])
-            shards[i, j] = verifier.verify_device(
-                spec, schedule, dev, obs, query_shard=(j, n_query))
+            shards[i, j] = verifier.verify_on_device(
+                spec, part, mesh.devices[i, j],
+                query_shard=(j, n_query))["verdict"]
     per_shard = np.stack(
         [np.concatenate([shards[i, j].cpu().numpy() for i in range(n_proof)])
          for j in range(n_query)], axis=-1)[:B]

@@ -273,6 +273,90 @@ def ingest_proof(spec, raw, vraw):
     return out
 
 
+# keys whose axis 0 (axis 1 once batched) is the FRI query round
+_QUERY_AXIS_KEYS = ("init_leaves_0", "init_leaves_1", "init_leaves_2",
+                    "init_leaves_3", "init_leaf_packed", "init_siblings")
+
+
+def query_axis_keys(spec):
+    """The keys of a proof whose leading axis is the FRI query round."""
+    return _QUERY_AXIS_KEYS + tuple(
+        f"step{j}_{part}" for j in range(len(spec.reduction_arity_bits))
+        for part in ("evals", "leaf_packed", "siblings"))
+
+
+def proof_shapes(spec, num_query_rounds=None):
+    """{key: (shape, dtype)} of one proof as ``ingest_proof`` makes it,
+    holding ``num_query_rounds`` FRI query rounds (default: the circuit's)."""
+    Q = spec.num_query_rounds if num_query_rounds is None else num_query_rounds
+    u64, u32 = np.dtype(np.uint64), np.dtype(np.uint32)
+    cs, nsteps = spec.cap_size, len(spec.reduction_arity_bits)
+    layout = leaf_layout(spec)
+    out = {"public_inputs": ((spec.num_public_inputs,), u64)}
+    op_lens = {"constants": spec.num_constants,
+               "plonk_sigmas": spec.num_routed_wires,
+               "wires": spec.num_wires,
+               "plonk_zs": spec.num_challenges,
+               "plonk_zs_next": spec.num_challenges,
+               "partial_products": (spec.num_challenges
+                                    * spec.num_partial_products),
+               "quotient_polys": spec.num_quotient_polys}
+    for k, n in op_lens.items():
+        out[f"op_{k}"] = ((n, 2), u64)
+    out["final_poly"] = ((spec.final_poly_len, 2), u64)
+    out["pow_witness"] = ((), u64)
+    for k in ("wires_cap", "zs_pp_cap", "quotient_cap"):
+        out[k] = ((cs, 16), u32)
+        out[f"{k}_tovec"] = ((cs, TOVEC_CHUNKS), u64)
+    out["const_sigmas_cap"] = ((cs, 16), u32)
+    out["circuit_digest"] = ((16,), u32)
+    out["circuit_digest_tovec"] = ((TOVEC_CHUNKS,), u64)
+    out["commit_caps"] = ((nsteps, cs, 16), u32)
+    out["commit_caps_tovec"] = ((nsteps, cs, TOVEC_CHUNKS), u64)
+    for o, size in enumerate(spec.oracle_leaf_sizes):
+        out[f"init_leaves_{o}"] = ((Q, size), u64)
+    out["init_leaf_packed"] = ((Q, 4, layout.max_steps, 3, 16), u32)
+    out["init_siblings"] = ((Q, 4, spec.initial_tree_depth, 16), u32)
+    for j, a in enumerate(spec.reduction_arity_bits):
+        n_chunks = absorb_slot_masks((1 << a) * 2).shape[0]
+        out[f"step{j}_evals"] = ((Q, 1 << a, 2), u64)
+        out[f"step{j}_leaf_packed"] = ((Q, n_chunks, 3, 16), u32)
+        out[f"step{j}_siblings"] = ((Q, spec.step_tree_depths[j], 16), u32)
+    return out
+
+
+def batch_error(spec, batch, num_query_rounds=None):
+    """None when a batched dict has exactly the keys, shapes and dtypes that
+    ``spec`` implies for its batch size (``pow_witness``'s length) and
+    ``num_query_rounds`` rounds (default: the circuit's), else a message
+    naming the first key that differs.  The ``ingest_batch`` mask is
+    optional."""
+    want = proof_shapes(spec, num_query_rounds)
+    got = set(batch) - {VALID_MASK}
+    if got != set(want):
+        return (f"batch keys differ from the circuit's: missing "
+                f"{sorted(set(want) - got)}, unexpected {sorted(got - set(want))}")
+    B = np.shape(batch["pow_witness"])[:1]
+    if np.ndim(batch["pow_witness"]) != 1:
+        return f"pow_witness is {np.shape(batch['pow_witness'])}, not (B,)"
+    want[VALID_MASK] = ((), np.dtype(bool))
+    for k in [k for k in want if k in batch]:
+        shape, dtype = want[k]
+        a = batch[k]
+        if (np.shape(a), np.asarray(a).dtype) != (B + shape, dtype):
+            return (f"{k} is {np.asarray(a).dtype} {np.shape(a)}; the circuit "
+                    f"implies {dtype} {B + shape}")
+    return None
+
+
+def zero_batch(spec, batch_size, num_query_rounds=None):
+    """A batch of ``batch_size`` all-zero proofs in the shapes and dtypes
+    that ``spec`` implies: the layout, not a proof."""
+    return {k: np.zeros((batch_size,) + shape, dtype)
+            for k, (shape, dtype) in proof_shapes(spec,
+                                                  num_query_rounds).items()}
+
+
 def stack_proofs(proofs):
     """List of proof dicts (same circuit) -> batched dict (leading axis B)."""
     keys = proofs[0].keys()

@@ -13,8 +13,9 @@ with ``corrupt_wires_opening`` applied at the global lanes listed in
 It calls ``verify_batch_distributed`` ``--iters`` times and writes a JSON
 object to ``--out``: the verdicts and accept count of the first call, the
 kernel launches of that call, the seconds of every call and the device.
-With ``--unequal-check`` it then passes a tiny batch of R + 1 lanes, which
-must raise ``ValueError`` on every rank, and records the message.
+With ``--unequal-check`` it then passes a tiny batch of R + 1 lanes, and a
+tiny batch of two query rounds of which rank 1 keeps one; each must raise
+``ValueError`` on every rank, and the messages are recorded.
 
 ``launch`` starts the N ranks, one process each, waits for them with a time
 limit, stops every one it started, and returns their JSON objects.  A GPU
@@ -129,6 +130,16 @@ def make_lanes(circuit, first, count, corrupt=()):
     return serde.stack_proofs([bad if g in corrupt else good for g in lanes])
 
 
+def _raised(spec, local_batch, device):
+    """The message of the ValueError that verifying ``local_batch`` raises,
+    or None."""
+    try:
+        distributed.verify_batch_distributed(spec, local_batch, device)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 def run(args):
     device = distributed.local_device(args.device)
     if device.type == "cpu":
@@ -163,11 +174,14 @@ def run(args):
         spec = make_tiny_spec()
         uneven = serde.stack_proofs([make_dummy_proof(spec, seed=i)
                                      for i in range(args.rank + 1)])
-        try:
-            distributed.verify_batch_distributed(spec, uneven, device)
-            result["unequal_error"] = None
-        except ValueError as e:
-            result["unequal_error"] = str(e)
+        result["unequal_error"] = _raised(spec, uneven, device)
+        spec2 = make_tiny_spec(num_query_rounds=2)
+        batch = serde.stack_proofs([make_dummy_proof(spec2)])
+        if args.rank == 1:  # one query round of the circuit's two
+            qkeys = serde.query_axis_keys(spec2)
+            batch = {k: (v[:, :1] if k in qkeys else v)
+                     for k, v in batch.items()}
+        result["query_round_error"] = _raised(spec2, batch, device)
     with open(args.out, "w") as f:
         json.dump(result, f)
     torch.distributed.destroy_process_group()

@@ -18,32 +18,45 @@ GPU and returns one boolean verdict per proof; an invalid proof is data,
 never an exception.  Only an explicit ``device="cpu"`` runs it on the CPU
 (through the kernels' plain torch versions); without a GPU the default
 raises.
+
+On the GPU every entry point (``verify_batch``, the meshes, the distributed
+path, ``cli bench``) goes through the compiled verifier: ``verify_device``
+captured once per (spec, batch size, device, Poseidon-BN254 kernel, query
+window) in a CUDA graph and replayed, the counterpart of the JAX package's
+per-shape ``jax.jit`` programs.  ``verify_device`` itself stays eager: the
+CPU runs it, and so does the stage probe.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import time
 
 import numpy as np
 import torch
 
 from .fields import goldilocks as gl
+from .hash import poseidon_bn254 as pb
 from .hash import poseidon_gl as pgl
 from .transcript import challenger as chal
 from .plonk_checks.vanishing import verify_plonk
-from .fri.verify import verify_fri
+from .fri.verify import check_query_rounds, query_rounds, verify_fri
+from .proof import serde
 from .proof.convert import from_reference
 from .proof.serde import VALID_MASK, stack_proofs
 
 
 def resolve_device(device):
-    """The torch device to run on; a CUDA device must exist, never a silent
+    """The torch device to run on, a CUDA device with its index (the
+    current one for ``"cuda"``); a CUDA device must exist, never a silent
     fall-back to the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the verifier runs on the GPU "
                            "unless asked for the CPU (device=\"cpu\")")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -128,18 +141,155 @@ def apply_valid_masks(verdict, proof_batch, valid_mask=None):
     return verdict
 
 
+# ---------------------------------------------------------------------------
+# The compiled verifier: one CUDA graph per key
+# ---------------------------------------------------------------------------
+
+def _leaves(tree, name=""):
+    """(name, tensor) pairs of a nest of dicts and tuples, in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return [(name, tree)]
+    items = sorted(tree.items()) if isinstance(tree, dict) else enumerate(tree)
+    return [leaf for k, x in items
+            for leaf in _leaves(x, f"{name}.{k}" if name else str(k))]
+
+
+def check_inputs(static, given):
+    """Raise ValueError unless the nest ``given`` has the structure of
+    ``static`` and every tensor exactly its shape and dtype.  ``copy_``
+    would broadcast (a batch of one query round would fill a buffer of 28
+    silently) or convert, so nothing is copied into a graph's inputs
+    unchecked."""
+    want, got = _leaves(static), _leaves(given)
+    if [n for n, _ in want] != [n for n, _ in got]:
+        raise ValueError(f"inputs {[n for n, _ in got]} differ from the "
+                         f"compiled verifier's {[n for n, _ in want]}")
+    for (name, w), (_, g) in zip(want, got):
+        if (g.shape, g.dtype) != (w.shape, w.dtype):
+            raise ValueError(f"input {name} is {g.dtype} {tuple(g.shape)}; "
+                             f"the compiled verifier of this key takes "
+                             f"{w.dtype} {tuple(w.shape)}")
+
+
+class CompiledVerifier:
+    """``verify_device(..., diagnostics=True)`` of one key, captured in a
+    CUDA graph.
+
+    The static inputs are made from the circuit's layout (``serde
+    .zero_batch``).  At the first call, after the inputs are copied in, one
+    eager run on a side stream fills the constant tables (``goldilocks
+    .device_table``), the kernels' tables and their one-time attributes;
+    then ``verify_device`` is captured on that stream (``capture_s`` holds
+    the capture and instantiation, ``warmup_s`` the eager run).  Every call
+    checks its inputs against the static ones (``check_inputs``), copies
+    them in, replays the graph and returns clones of the outputs, so the
+    next replay cannot overwrite a result not yet read.  A failed capture
+    or replay raises: nothing falls back to the eager path."""
+
+    def __init__(self, spec, batch_size, device, mode, query_shard=None):
+        start, stop = query_rounds(spec, query_shard)
+        self.spec, self.device = spec, torch.device(device)
+        self.mode, self.query_shard = mode, query_shard
+        self.schedule, dev, obs = prepare(
+            spec, serde.zero_batch(spec, batch_size, stop - start),
+            self.device)
+        self.inputs = {"proof": dev, "obs": obs}
+        self.graph = self.outputs = None
+        self.warmup_s = self.capture_s = None
+
+    def _verify(self):
+        with pb.use_impl(self.mode):
+            return verify_device(self.spec, self.schedule,
+                                 self.inputs["proof"], self.inputs["obs"],
+                                 diagnostics=True,
+                                 query_shard=self.query_shard)
+
+    def _capture(self):
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            self._verify()
+        side.synchronize()
+        self.warmup_s = time.perf_counter() - t0
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=side):
+            outputs = self._verify()
+        self.capture_s = time.perf_counter() - t0
+        self.graph, self.outputs = graph, outputs
+
+    def __call__(self, dev, obs):
+        """Verify the tensor dict ``dev`` and observed sequence ``obs`` (as
+        ``prepare`` makes them, on any device): {"verdict", "plonk_ok",
+        "fri_ok"}, (B,) bool tensors on this entry's device, not yet
+        synchronised."""
+        check_query_rounds(self.spec, dev, self.query_shard)
+        given = {"proof": dev, "obs": obs}
+        check_inputs(self.inputs, given)
+        with torch.cuda.device(self.device):
+            for (_, static), (_, x) in zip(_leaves(self.inputs),
+                                           _leaves(given)):
+                static.copy_(x)
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            return {k: v.clone() for k, v in self.outputs.items()}
+
+
+@functools.lru_cache(maxsize=8)
+def _compiled(spec, batch_size, device, mode, query_shard):
+    return CompiledVerifier(spec, batch_size, device, mode, query_shard)
+
+
+def compiled_verifier(spec, batch_size, device, mode, query_shard=None):
+    """The compiled verifier of one key, the counterpart of the JAX
+    package's ``_compiled_verifier`` (an ``lru_cache(maxsize=8)`` of
+    ``jax.jit``): at most 8 are held, and the least recently used one is
+    dropped, with its graph and memory pool, when a ninth key comes.
+    ``mode`` is the Poseidon-BN254 kernel (``poseidon_bn254.kernel_impl()``)
+    the graph launches, the counterpart of the JAX ``_mode_key``.  The key
+    is normalised (a CUDA device with its index, one query shard of one as
+    none), so every spelling of a key finds one entry."""
+    if query_shard == (0, 1):  # one shard holds every round
+        query_shard = None
+    return _compiled(spec, int(batch_size), resolve_device(device), mode,
+                     query_shard)
+
+
+compiled_verifier.cache_info = _compiled.cache_info
+compiled_verifier.cache_clear = _compiled.cache_clear
+
+
+def verify_on_device(spec, proof_batch, device, query_shard=None):
+    """Verify a batched serde dict on ``device`` before any mask:
+    {"verdict", "plonk_ok", "fri_ok"}, (B,) bool tensors on the device, not
+    yet synchronised.  The CPU runs ``verify_device`` eagerly; a GPU runs
+    the compiled verifier of (spec, B, device, the Poseidon-BN254 kernel,
+    query window), capturing its graph at the key's first call.
+    ``query_shard`` as in ``verify_device``."""
+    device = resolve_device(device)
+    if device.type == "cpu":
+        schedule, dev, obs = prepare(spec, proof_batch, device)
+        return verify_device(spec, schedule, dev, obs, diagnostics=True,
+                             query_shard=query_shard)
+    entry = compiled_verifier(spec, np.shape(proof_batch["pow_witness"])[0],
+                              device, pb.kernel_impl(), query_shard)
+    _, dev, obs = prepare(spec, proof_batch, "cpu")
+    return entry(dev, obs)
+
+
 def verify_batch(spec, proof_batch, valid_mask=None, device="cuda",
                  diagnostics=False):
     """Verify a batched serde dict (leading axis B).  Returns (B,) bool.
 
-    Runs on the GPU unless ``device="cpu"``.  Lanes that failed validation at
-    load time are always False: the mask that ``serde.ingest_batch`` stores
-    in the batch is applied, and so is ``valid_mask`` when the caller passes
-    one (optional (B,) bool).  With diagnostics, returns a dict of (B,) bool
-    arrays: verdict, plonk_ok, fri_ok."""
-    device = resolve_device(device)
-    schedule, dev, obs = prepare(spec, proof_batch, device)
-    out = verify_device(spec, schedule, dev, obs, diagnostics=True)
+    Runs on the GPU, through the compiled verifier, unless ``device="cpu"``.
+    Lanes that failed validation at load time are always False: the mask
+    that ``serde.ingest_batch`` stores in the batch is applied, and so is
+    ``valid_mask`` when the caller passes one (optional (B,) bool).  With
+    diagnostics, returns a dict of (B,) bool arrays: verdict, plonk_ok,
+    fri_ok."""
+    out = verify_on_device(spec, proof_batch, device)
     out = {k: v.cpu().numpy() for k, v in out.items()}
     out["verdict"] = apply_valid_masks(out["verdict"], proof_batch, valid_mask)
     return out if diagnostics else out["verdict"]

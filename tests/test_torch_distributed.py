@@ -6,7 +6,8 @@ bad-opening proof on rank 1.  Both ranks must report the verdicts that the
 JAX package's two-process test pins, [True, False], equal to the JAX
 package's Python-int verifier (``bench.cpu_reference``) on the same two
 JSONs, and an accept count of 1.  The same ranks then pass local batches of
-unequal size (1 and 2 lanes), which must raise ``ValueError`` on every rank.
+unequal size (1 and 2 lanes), and then rank 1 a batch with one query round
+of the circuit's two; each must raise ``ValueError`` on every rank.
 In this process, a group of world size 1 verifies both decode_block proofs
 (the same verdicts again), verifies tiny-spec dummy proofs like
 ``verify_batch`` and applies both masks.  Verdicts are booleans, compared
@@ -80,6 +81,17 @@ def test_unequal_local_sizes_raise_on_every_rank(two_ranks):
         assert "[1, 2]" in r["unequal_error"]
 
 
+def test_wrong_query_round_count_raises_on_every_rank(two_ranks):
+    """Rank 1 passes a batch with one query round of the circuit's two: the
+    ranks gather a shape flag before verifying, so both raise (within the
+    launcher's time limit) rather than rank 0 waiting in the verdict
+    gather."""
+    for r in two_ranks:
+        assert r["query_round_error"] is not None, r
+        assert "[True, False]" in r["query_round_error"]
+    assert "init_leaves_0" in two_ranks[1]["query_round_error"]
+
+
 def test_world_of_one_equals_verify_batch(world_of_one):
     spec, batch = _tiny(2)
     distributed.initialize(backend="nccl")  # already up: nothing happens
@@ -106,9 +118,12 @@ def test_masks_reach_the_distributed_path(world_of_one, monkeypatch):
     """The batch's ingest mask and the caller's ``valid_mask`` both apply
     before the gather and the count; the device verdict is stubbed to all
     True so that only the masks can make a lane False."""
-    monkeypatch.setattr(verifier, "verify_device",
-                        lambda spec, schedule, dev, obs:
-                        torch.ones(obs[0].shape[0], dtype=torch.bool))
+    def accept_all(spec, schedule, dev, obs, diagnostics=False,
+                   query_shard=None):
+        ok = torch.ones(obs[0].shape[0], dtype=torch.bool)
+        return {"verdict": ok, "plonk_ok": ok, "fri_ok": ok} if diagnostics else ok
+
+    monkeypatch.setattr(verifier, "verify_device", accept_all)
     spec, batch = _tiny(4)
     batch[serde.VALID_MASK] = np.asarray([True, False, True, True])
     verdicts, n_accept = distributed.verify_batch_distributed(

@@ -118,7 +118,7 @@ def test_query_sharded_batch_needs_its_query_shard():
     """A batch holding Q/2 rounds is malformed unless a query shard says
     so, and a query shard takes no batch of another count."""
     spec, batch = _tiny_batch(2)
-    half = set(pmesh._query_keys(spec))
+    half = set(serde.query_axis_keys(spec))
     cut = {k: (v[:, :2] if k in half else v) for k, v in batch.items()}
     for dev, shard in [(cut, None), (batch, (0, 2)), (cut, (0, 4))]:
         with pytest.raises(ValueError, match="query rounds"):
@@ -126,8 +126,10 @@ def test_query_sharded_batch_needs_its_query_shard():
                        challenges=None, verdict=None, query_shard=shard)
 
 
-def _accept_all(spec, schedule, dev, obs, query_shard=None):
-    return torch.ones(obs[0].shape[0], dtype=torch.bool)
+def _accept_all(spec, schedule, dev, obs, diagnostics=False,
+                query_shard=None):
+    ok = torch.ones(obs[0].shape[0], dtype=torch.bool)
+    return {"verdict": ok, "plonk_ok": ok, "fri_ok": ok} if diagnostics else ok
 
 
 @pytest.mark.parametrize("two_d", [False, True], ids=["1d", "2d"])

@@ -63,7 +63,8 @@ def test_profile_stages_applies_the_ingest_mask(monkeypatch):
         spec, [(raw, vraw), (truncated, vraw), (raw, vraw)])
     assert mask.tolist() == [True, False, True]
 
-    def all_true(spec, schedule, dev, obs, diagnostics=False, timer=None):
+    def all_true(spec, schedule, dev, obs, diagnostics=False, timer=None,
+                 query_shard=None):
         ok = torch.ones((obs[0].shape[0],), dtype=torch.bool)
         return {"verdict": ok, "plonk_ok": ok, "fri_ok": ok} if diagnostics else ok
 
