@@ -15,7 +15,14 @@
    turns (A, CIOS, CIOS, A) at both lane counts the main path launches and
    at half of each, the lane counts of a step batch split in two; one
    dependent Goldilocks product's latency is timed for the transcript's
-   latency bound; ``ptxas -v``'s report of every kernel is printed;
+   latency bound; ``ptxas -v``'s report of every kernel is printed; the
+   quadratic-extension chain kernels (Horner, powers, inverse) and the
+   public-input sponge (the transcript kernel over HashNoPad's blocks) are
+   checked bit-exact at every shape the main path gives them (both
+   fixtures, B=256) and at lane counts off their 64-thread blocks, with
+   broadcast and strided inputs and the edge values, and each is timed at
+   its largest main-path shape through a CUDA graph of 20 launches beside
+   its plain version's replay and eager times;
 4. the main path under PLONKY2_TPU_PB_IMPL=mxu, through the compiled
    verifier (one CUDA graph per key, captured at the key's first call; the
    cache emptied first): verifies 256 copies of testdata/step with one
@@ -23,7 +30,10 @@
    batch [valid, bad opening, bad leaf, bad pow] (must give [True, False,
    False, False]); the Python launch counters, which see a key's eager
    warm-up and its capture but no replay, must read kernel A 246 times
-   (2 x 123) and the transcript kernel 4 times, the CIOS kernel never;
+   (2 x 123), the transcript kernel 4 times, the public-input sponge 2
+   times (step has 36 public inputs, decode_block none), QE Horner 32, QE
+   powers 8 and QE inverse 28 times (8, 2 and 7 a verification), the CIOS
+   kernel never;
 5. the same path under PLONKY2_TPU_PB_IMPL=cios: the same verdicts, the CIOS
    kernel and the transcript kernel launched, kernel A not;
 6. the compiled verifier under each setting: the replay's verdict, plonk_ok
@@ -32,8 +42,10 @@
    decode_block lanes in another order) give their own verdicts; a step
    batch with one query round raises ValueError and the next replay is
    still right; one replay under torch.profiler launches kernel A (or the
-   CIOS kernel) 63 times and the transcript kernel once, and gives the
-   device's busy share; the eager wall against the median of 5 replays,
+   CIOS kernel) 63 times, the transcript kernel twice (the sponge and the
+   transcript), QE Horner 8, QE powers 2 and QE inverse 7 times, and gives
+   the device's events and busy share; the eager wall against the median of
+   5 replays,
    the first call with its warm-up and capture, and the peak device memory
    with the graphs held;
 7. stage times of the step batch (tools/profile_verify, eager) under both
@@ -41,14 +53,15 @@
    kernel launches seen on the device, the device's busy share of the wall,
    and each hand-written kernel's device time per batch;
 8. the soundness matrix on step (tools/soundness_matrix) under both
-   settings: lane 0 True, every other lane False;
+   settings: lane 0 True, every other lane False, with its launch counts;
 9. the command line: ``verify`` on decode_block and ``bench`` on step B=256
-   (through the graph; its first call, capture included, apart);
+   (through the graph; its first call, capture included, apart), each with
+   its launch counts;
 10. the parallel paths (parallel/mesh.py, parallel/distributed.py), each
    through the compiled verifier, its cache emptied first, on the step
    batch (lane 1 corrupted, the same verdicts as verify_batch) with its own
-   launch counts (a warm-up and a capture per key), both the Poseidon-BN254
-   and the transcript kernel required, and the wall of a second call
+   launch counts (a warm-up and a capture per key, every kernel of the path
+   counted), and the wall of a second call
    (replays): the 1-D mesh over every GPU; the (2, 1) mesh on [cuda:0,
    cuda:0], whose two proof shards share one graph, with the corrupted lane
    in the second shard; the (1, 2) proof x query mesh over [cuda:0,
@@ -85,8 +98,12 @@ import torch
 from plonky2_tpu_torch import cli, verifier
 from plonky2_tpu_torch.fields import bn254
 from plonky2_tpu_torch.fields import goldilocks as gl
+from plonky2_tpu_torch.fields import goldilocks_ext as qe
 from plonky2_tpu_torch.hash import poseidon_bn254 as pb
+from plonky2_tpu_torch.hash import poseidon_gl as pgl
 from plonky2_tpu_torch.kernels import build
+from plonky2_tpu_torch.kernels import goldilocks_ext as kq
+from plonky2_tpu_torch.kernels import launches as kernel_launches
 from plonky2_tpu_torch.kernels import poseidon_bn254 as kb
 from plonky2_tpu_torch.kernels import poseidon_bn254_cios as kc
 from plonky2_tpu_torch.kernels import poseidon_gl_transcript as kt
@@ -138,7 +155,8 @@ GL_PERM_IMADS = ((8 * 12 + 22) * (2 * 8 + 2 * 6) + (11 * 11 + 22 * 23) * 8
 # x^2 and x^3 w0 beside x^4; pc w0 is a constant, and the rest sum needs
 # only depth 2 from the round's input).
 GL_PERM_DEPTH = 8 * 4 + 22 * 3
-NO_LIBRARY = None  # no PyTorch call computes a Poseidon permutation
+NO_LIBRARY = None  # no PyTorch call computes a Poseidon permutation or a
+#                   Goldilocks product
 # Off kernel A's 64-lane tile, the CIOS group kernel's 32-lane and its lane
 # kernel's 128-lane tile, and either side of the CIOS kernel's switch from
 # the group to the lane kernel (2 warps an SM of one thread a lane: 8448
@@ -151,9 +169,45 @@ TRANSCRIPT_BATCHES = [1, 3, 17, STEP_BATCH, STEP_BATCH + 1]
 # warm-up and the capture); a replay launches them inside the graph.
 CAPTURE_RUNS = 2
 STEP_BN254_LAUNCHES = 63
-EXPECTED_BN254_LAUNCHES = CAPTURE_RUNS * 123
-EXPECTED_TRANSCRIPT_LAUNCHES = CAPTURE_RUNS * 2
+DECODE_BN254_LAUNCHES = 60
+# Of one verification on either fixture: the call sites of
+# fields/goldilocks_ext.horner (8), powers (2) and inv (7); and one
+# public-input sponge launch where the circuit has public inputs (step: 36,
+# decode_block: none, whose hash is zeros without a launch).
+CHAIN_LAUNCHES = {"qe_horner": 8, "qe_powers": 2, "qe_inv": 7}
+PI_HASH_LAUNCHES = {"step": 1, "decode_block": 0}
 REPLAYS = 5
+# A step replay issued 367,045 device events while the chains and the
+# public-input hash still ran as plain torch (PERF.md §6, NVIDIA H100 80GB
+# HBM3, 700.00 W).
+PLAIN_CHAINS_REPLAY_EVENTS = 367045
+# The chain kernels' checked shapes: (terms, x) of every horner call at B=256
+# on step and decode_block (the final polynomial is 32 and 16 long, the FRI
+# batch 258 and 257), lane counts off the 64-thread blocks, n = 1, and terms
+# that broadcast against x; the inverses' and powers' main-path shapes and
+# the same lane counts.
+HORNER_CASES = [((256, 63), ()), ((256, 4, 4), ()), ((256, 145), (256,)),
+                ((256, 2, 8), (256, 1)), ((256, 258), (256,)),
+                ((256, 257), (256,)), ((256, 2), (256,)),
+                ((256, 1, 32), (256, 28)), ((256, 1, 16), (256, 28)),
+                ((1, 5), (1,)), ((31, 7), (31,)), ((33, 7), (33,)),
+                ((255, 9), (255,)), ((257, 9), (257,)), ((65, 1), (65,)),
+                ((1, 9), (40,))]
+POWERS_CASES = [(256, 258), (256, 257), (256, 2), (1, 5), (31, 5), (33, 5),
+                (255, 9), (257, 9), (256, 1)]
+INV_CASES = [(256,), (256, 28), (256, 28, 16), (1,), (31,), (33,), (255,),
+             (257,)]
+PI_HASH_N = [0, 1, 7, 8, 9, 36]
+GL_EDGE = [0, 1, gl.P - 1, (1 << 32) - 1, 1 << 32, gl.P - (1 << 32)]
+# IMADs of the chains' functions, with a Goldilocks product at 8 and a
+# squaring at 6: a Horner or powers step is a QE product by a fixed x,
+# 4 products once 7 x1 is made (one product a lane); an inverse is 14
+# products and 65 squarings (the conjugate, the norm, the 64 squarings and
+# 9 products of the addition chain for x^(p-2), the scaling).
+QE_STEP_IMADS = 4 * 8
+QE_INV_IMADS = 14 * 8 + 65 * 6
+QE_INV_DEPTH = 75  # dependent products of one inverse (csrc/goldilocks_ext.cu)
+GRAPH_LAUNCHES = 20
 # The refed step batch: the corrupted lane moved.
 MOVED_LANE = 200
 DECODE_ORDER = [3, 0, 2, 1]
@@ -229,6 +283,35 @@ def timed_once(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def graph_ms(fn, iters=GRAPH_LAUNCHES):
+    """Device time of one fn() inside a CUDA graph of ``iters`` calls (the
+    mean of 3 replays, after a warm-up call and a first replay): the time
+    without the host's launch pace, as the compiled verifier runs it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # constant tables and allocations before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return float(np.mean(times))
 
 
 def random_bn_states(n, rng):
@@ -327,6 +410,124 @@ def gl_mul_latency(dev):
     return (t2 - t1) / 1e3 / (n2 - n1)
 
 
+def qe_values(shape, rng, dev, zero_lanes=0):
+    """Random QE values of ``shape`` on ``dev``; the first elements take
+    every pair of GL_EDGE but (0, 0), the last ``zero_lanes`` are 0."""
+    c = [np.array(rng.integers(0, gl.P, size=shape, dtype=np.uint64))
+         for _ in range(2)]
+    f0, f1 = c[0].reshape(-1), c[1].reshape(-1)
+    pairs = [(a, b) for a in GL_EDGE for b in GL_EDGE if a or b][:f0.size]
+    for i, (a, b) in enumerate(pairs):
+        f0[i], f1[i] = a, b
+    if zero_lanes:
+        f0[-zero_lanes:] = 0
+        f1[-zero_lanes:] = 0
+    return tuple(tuple(t.reshape(shape) for t in gl.split_u64(v, dev))
+                 for v in c)
+
+
+def strided(a):
+    """The same QE value through transposed, non-contiguous planes."""
+    return tuple(tuple(t.T.contiguous().T for t in c) for c in a)
+
+
+def check_chain_kernels(dev, rng):
+    """The QE Horner, powers and inverse kernels and the public-input sponge
+    bit-exact against their plain versions at every case of HORNER_CASES,
+    POWERS_CASES, INV_CASES and PI_HASH_N (B = 1 and STEP_BATCH), and on
+    strided input; returns each one's largest |kernel - plain| (0)."""
+    err = {"qe_horner": 0, "qe_powers": 0, "qe_inv": 0,
+           "poseidon_gl_pi_hash": 0}
+
+    def hold(name, got, want, what):
+        """got, want: tuples of GL pairs."""
+        torch.cuda.synchronize()
+        for g, w in zip((t for c in got for t in c), (t for c in want for t in c)):
+            if g.shape != w.shape or not torch.equal(g, w):
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"at {what}")
+            if g.numel():
+                err[name] = max(err[name], int((g - w).abs().max()))
+
+    for t_shape, x_shape in HORNER_CASES:
+        terms, x = qe_values(t_shape, rng, dev), qe_values(x_shape, rng, dev)
+        hold("qe_horner", kq.horner(terms, x), qe.horner_plain(terms, x),
+             f"terms {t_shape}, x {x_shape}")
+    terms, x = strided(qe_values((256, 145), rng, dev)), qe_values((256,), rng, dev)
+    hold("qe_horner", kq.horner(terms, x), qe.horner_plain(terms, x),
+         "strided terms (256, 145)")
+    for lanes, n in POWERS_CASES:
+        x = qe_values((lanes,), rng, dev)
+        hold("qe_powers", kq.powers(x, n), qe.powers_plain(x, n),
+             f"{lanes} lanes, n = {n}")
+    x = tuple(tuple(t.T for t in c) for c in qe_values((16, 16), rng, dev))
+    hold("qe_powers", kq.powers(x, 6), qe.powers_plain(x, 6),
+         "strided x (16, 16)")
+    for shape in INV_CASES:
+        a = qe_values(shape, rng, dev, zero_lanes=1)
+        got = kq.inv(a)
+        hold("qe_inv", got, qe.inv_plain(a), f"{shape}")
+        if any(int(t.reshape(-1)[-1]) for c in got for t in c):
+            raise AssertionError(f"qe_inv: 0 does not give 0 at {shape}")
+    a = strided(qe_values((28, 256), rng, dev))
+    hold("qe_inv", kq.inv(a), qe.inv_plain(a), "strided (28, 256)")
+    for n in PI_HASH_N:
+        for batch in (1, STEP_BATCH):
+            vals = rng.integers(0, gl.P, size=(batch, n), dtype=np.uint64)
+            flat = vals.reshape(-1)
+            flat[:min(flat.size, 3)] = [0, 1, gl.P - 1][:flat.size]
+            inputs = gl.split_u64(vals, dev)
+            hold("poseidon_gl_pi_hash", (pgl.hash_no_pad(inputs),),
+                 (pgl.hash_no_pad_plain(inputs),), f"n = {n}, B = {batch}")
+    return err
+
+
+def time_chain_kernels(dev, rng, rate, latency_s):
+    """Each chain kernel and the sponge at its largest shape on the main
+    path (step, B=STEP_BATCH): its time in a CUDA graph, its plain version's
+    in a graph and eagerly, its bound and the latency of its own dependent
+    chain."""
+    B = STEP_BATCH
+    n0 = 258
+    terms, x = qe_values((B, n0), rng, dev), qe_values((B,), rng, dev)
+    a = qe_values((B, 28, 16), rng, dev)
+    n_el = a[0][0].numel()
+    pi = gl.split_u64(rng.integers(0, gl.P, size=(B, 36), dtype=np.uint64),
+                      dev)
+    cases = {
+        # name: (kernel, plain, shape, IMADs, bytes, dependent products)
+        "qe_horner": (lambda: kq.horner(terms, x),
+                      lambda: qe.horner_plain(terms, x),
+                      f"terms ({B}, {n0}), x ({B},)",
+                      B * (n0 * QE_STEP_IMADS + 8), 32 * B * (n0 + 2), n0),
+        "qe_powers": (lambda: kq.powers(x, n0),
+                      lambda: qe.powers_plain(x, n0), f"x ({B},), n = {n0}",
+                      B * ((n0 - 1) * QE_STEP_IMADS + 8), 32 * B * (n0 + 1),
+                      n0 - 1),
+        "qe_inv": (lambda: kq.inv(a), lambda: qe.inv_plain(a),
+                   f"({B}, 28, 16)", n_el * QE_INV_IMADS, 64 * n_el,
+                   QE_INV_DEPTH),
+    }
+    out = {}
+    for name, (kern, plain, shape, imads, nbytes, depth) in cases.items():
+        ms, by = bound(imads / rate * 1e3, nbytes)
+        out[name] = {"shape": shape, "ms": graph_ms(kern),
+                     "plain_ms": graph_ms(plain, 2),
+                     "plain_eager_ms": cuda_ms(plain, 2),
+                     "bound_ms": ms, "bound_by": by,
+                     "scan_latency_ms": depth * latency_s * 1e3}
+    n_perms = -(-36 // 8)
+    ms, by, form = transcript_bound(n_perms, B, 16 * B * (36 + 4), rate,
+                                    latency_s)
+    out["poseidon_gl_pi_hash"] = {
+        "shape": f"({B}, 36) inputs, {n_perms} permutations",
+        "ms": graph_ms(lambda: kt.hash_no_pad_kernel(pi)),
+        "plain_ms": graph_ms(lambda: pgl.hash_no_pad_plain(pi), 2),
+        "plain_eager_ms": cuda_ms(lambda: pgl.hash_no_pad_plain(pi), 2),
+        "bound_ms": ms, "bound_by": by, "bound_form": form}
+    return out
+
+
 def ptxas_report():
     """Per kernel: registers, shared memory and spills, from ``ptxas -v``."""
     keep = ("Compiling entry function", "registers", "spill")
@@ -342,16 +543,21 @@ def decode_block_batch():
     return spec, batch, mask
 
 
-def reset_counters():
-    kb.permute.launches = 0
-    kc.permute.launches = 0
-    kt.run_transcript_kernel.launches = 0
+def per_verify(fixture, impl):
+    """Each kernel's launches in one verification of ``fixture`` under
+    PLONKY2_TPU_PB_IMPL=``impl``."""
+    bn = {"step": STEP_BN254_LAUNCHES,
+          "decode_block": DECODE_BN254_LAUNCHES}[fixture]
+    used, unused = (("poseidon_bn254_cios", "poseidon_bn254") if impl == "cios"
+                    else ("poseidon_bn254", "poseidon_bn254_cios"))
+    return {used: bn, unused: 0, "poseidon_gl_transcript": 1,
+            "poseidon_gl_pi_hash": PI_HASH_LAUNCHES[fixture], **CHAIN_LAUNCHES}
 
 
-def read_counters():
-    return {"poseidon_bn254": kb.permute.launches,
-            "poseidon_bn254_cios": kc.permute.launches,
-            "poseidon_gl_transcript": kt.run_transcript_kernel.launches}
+def times(k, *counts):
+    """k x the sum of launch-count dicts."""
+    return {key: k * sum(c[key] for c in counts) for key in counts[0]}
+
 
 
 def main_path(impl, dev, spec_step, batch_step, expected, spec_db, batch_db,
@@ -363,31 +569,27 @@ def main_path(impl, dev, spec_step, batch_step, expected, spec_db, batch_db,
     with pb.use_impl(impl):
         verifier.compiled_verifier.cache_clear()
         torch.cuda.synchronize()
-        reset_counters()
+        kernel_launches.reset()
         t0 = time.perf_counter()
         got_step = verifier.verify_batch(spec_step, batch_step, device=dev)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
-        launches_step = read_counters()
+        launches_step = kernel_launches.read()
         got_db = verifier.verify_batch(spec_db, batch_db, valid_mask=mask_db,
                                        device=dev, diagnostics=True)
-        launches = read_counters()
+        launches = kernel_launches.read()
     if not np.array_equal(got_step, expected):
         bad_lanes = np.nonzero(got_step != expected)[0].tolist()
         raise AssertionError(f"{impl}: step batch wrong in lanes {bad_lanes}")
     if got_db["verdict"].tolist() != DECODE_EXPECTED:
         raise AssertionError(f"{impl}: decode_block verdicts {got_db}")
-    used = "poseidon_bn254_cios" if impl == "cios" else "poseidon_bn254"
-    unused = "poseidon_bn254" if impl == "cios" else "poseidon_bn254_cios"
-    got = (launches[used], launches["poseidon_gl_transcript"])
-    if got != (EXPECTED_BN254_LAUNCHES, EXPECTED_TRANSCRIPT_LAUNCHES):
-        raise AssertionError(f"{impl}: launches {launches}, expected "
-                             f"{EXPECTED_BN254_LAUNCHES} of {used} and "
-                             f"{EXPECTED_TRANSCRIPT_LAUNCHES} of the "
-                             f"transcript kernel")
-    if launches[unused] != 0:
-        raise AssertionError(f"{impl}: {unused} kernel launched "
-                             f"{launches[unused]} times")
+    want_step = times(CAPTURE_RUNS, per_verify("step", impl))
+    want = times(CAPTURE_RUNS, per_verify("step", impl),
+                 per_verify("decode_block", impl))
+    if launches_step != want_step or launches != want:
+        raise AssertionError(f"{impl}: launches {launches} (step "
+                             f"{launches_step}), expected {want} (step "
+                             f"{want_step})")
     return got_db, launches, launches_step, step_s
 
 
@@ -395,7 +597,9 @@ def profile_batch(impl, fn):
     """fn() under torch.profiler: (wall s, device kernel and copy events
     seen, device busy s, {kernel: (launches, device s)}).  The CIOS
     kernel's two kernels are also counted apart: its group kernel runs the
-    launches below 8448 lanes, its lane kernel the larger ones."""
+    launches below 8448 lanes, its lane kernel the larger ones.  The
+    public-input sponge is a launch of the transcript kernel and counts
+    under poseidon_gl_transcript."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -403,7 +607,9 @@ def profile_batch(impl, fn):
              "poseidon_bn254_cios": "poseidon_bn254_cios_kernel",
              "poseidon_bn254_cios_group": "poseidon_bn254_cios_kernel_group",
              "poseidon_bn254_cios_lane": "poseidon_bn254_cios_kernel_lane",
-             "poseidon_gl_transcript": "transcript_kernel"}
+             "poseidon_gl_transcript": "transcript_kernel",
+             "qe_horner": "qe_horner_kernel", "qe_powers": "qe_powers_kernel",
+             "qe_inv": "qe_inv_kernel"}
     torch.cuda.synchronize()
     with pb.use_impl(impl), profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
@@ -505,14 +711,11 @@ def compiled_checks(impl, dev, card, spec_step, batch_step, expected,
         graph_only = [wall_s(lambda: entry(d, obs))[1]
                       for _ in range(REPLAYS)]
     wall, n_dev, busy, per_kernel = profile_batch(impl, lambda: entry(d, obs))
-    used, unused = (("poseidon_bn254_cios", "poseidon_bn254") if impl == "cios"
-                    else ("poseidon_bn254", "poseidon_bn254_cios"))
-    got = (per_kernel[used][0], per_kernel["poseidon_gl_transcript"][0],
-           per_kernel[unused][0])
-    if got != (STEP_BN254_LAUNCHES, 1, 0):
-        raise AssertionError(f"{impl}: one replay launched {got} of {used}, "
-                             f"the transcript kernel and {unused}, expected "
-                             f"({STEP_BN254_LAUNCHES}, 1, 0)")
+    want = profiled_launches("step", impl)
+    got = {k: per_kernel[k][0] for k in want}
+    if got != want:
+        raise AssertionError(f"{impl}: one replay launched {got}, expected "
+                             f"{want}")
     kern = ", ".join(f"{k} {n} launches {t:.6f} s"
                      for k, (n, t) in per_kernel.items() if n)
     print(f"{impl}: step B={STEP_BATCH} eager {walls['step']:.4f} s against "
@@ -522,9 +725,20 @@ def compiled_checks(impl, dev, card, spec_step, batch_step, expected,
           f"{[round(w, 4) for w in graph_only]} (median "
           f"{np.median(graph_only):.4f} s) [{card}]")
     print(f"{impl}: one replay under torch.profiler: wall {wall:.4f} s, "
-          f"{n_dev} device events, device busy {busy:.4f} s ({busy / wall:.4f} "
-          f"of the wall); {kern} [{card}]")
-    return per_kernel
+          f"{n_dev} device events (with the plain chains: "
+          f"{PLAIN_CHAINS_REPLAY_EVENTS}), device busy {busy:.4f} s "
+          f"({busy / wall:.4f} of the wall); {kern} [{card}]")
+    return per_kernel, {"wall_s": wall, "device_events": n_dev,
+                        "busy_s": busy, "graph_median_s":
+                        float(np.median(graph_only))}
+
+
+def profiled_launches(fixture, impl):
+    """The kernel launches torch.profiler sees in one verification: those
+    of ``per_verify``, with the sponge under the transcript kernel's name."""
+    want = per_verify(fixture, impl)
+    want["poseidon_gl_transcript"] += want.pop("poseidon_gl_pi_hash")
+    return want
 
 
 def timed_path(fn, keep_graphs=False):
@@ -534,30 +748,28 @@ def timed_path(fn, keep_graphs=False):
     if not keep_graphs:
         verifier.compiled_verifier.cache_clear()
     torch.cuda.synchronize()
-    reset_counters()
+    kernel_launches.reset()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, read_counters()
+    return out, time.perf_counter() - t0, kernel_launches.read()
 
 
-def check_launches(what, launches, bn254, transcript):
-    """Fail unless ``what`` launched kernel A ``bn254`` times, the transcript
-    kernel ``transcript`` times and the CIOS kernel never."""
-    want = {"poseidon_bn254": bn254, "poseidon_bn254_cios": 0,
-            "poseidon_gl_transcript": transcript}
+def check_launches(what, launches, want):
+    """Fail unless ``what`` launched each kernel as ``want`` says."""
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, expected {want}")
 
 
-def parallel_paths(dev, card, spec_step, batch_step, expected, per_verify):
+def parallel_paths(dev, card, spec_step, batch_step, expected):
     """The mesh and distributed paths on the step batch (and the (1, 2)
     mesh on the query-shard decode_block lanes), each through the compiled
     verifier, its cache emptied first; returns each path's launches (a
-    key's warm-up and capture).  ``per_verify``: kernel A's launches of one
-    verification of a step batch and of a decode_block batch."""
+    key's warm-up and capture, each verifying every proof shard and query
+    shard once)."""
     n_gpu = torch.cuda.device_count()
-    bn_step, bn_db = per_verify
+    step1 = per_verify("step", "mxu")
+    db1 = per_verify("decode_block", "mxu")
     launches = {}
 
     def same(got, what, want=expected):
@@ -581,7 +793,7 @@ def parallel_paths(dev, card, spec_step, batch_step, expected, per_verify):
     same(got, "1-D mesh")
     same(again, "1-D mesh, second call")
     check_launches("1-D mesh", launches["mesh_1d"],
-                   CAPTURE_RUNS * n_gpu * bn_step, CAPTURE_RUNS * n_gpu)
+                   times(CAPTURE_RUNS * n_gpu, step1))
     print(f"1-D mesh over {n_gpu} GPU(s): step B={STEP_BATCH}, lane "
           f"{CORRUPT_LANE} alone rejected; wall per batch {first:.3f} s "
           f"first call (capture), {wall:.3f} s second call; launches "
@@ -602,7 +814,7 @@ def parallel_paths(dev, card, spec_step, batch_step, expected, per_verify):
     same(got, "(2, 1) mesh", want_r)
     same(again, "(2, 1) mesh, second call", want_r)
     check_launches("(2, 1) mesh", launches["mesh_2x1"],
-                   CAPTURE_RUNS * bn_step, CAPTURE_RUNS)
+                   times(CAPTURE_RUNS, step1))
     print(f"(2, 1) proof mesh on [{dev}, {dev}] (two shards of B="
           f"{STEP_BATCH // 2}, one graph): lane {RANKS_CORRUPT_LANE} alone "
           f"rejected; wall per batch {first:.3f} s first call, {wall:.3f} s "
@@ -615,7 +827,7 @@ def parallel_paths(dev, card, spec_step, batch_step, expected, per_verify):
     same(got, "(1, 2) mesh")
     same(again, "(1, 2) mesh, second call")
     check_launches("(1, 2) mesh", launches["mesh_2d"],
-                   CAPTURE_RUNS * 2 * bn_step, CAPTURE_RUNS * 2)
+                   times(CAPTURE_RUNS * 2, step1))
     print(f"(1, 2) proof x query mesh on [{dev}, {dev}]: step B={STEP_BATCH}, "
           f"lane {CORRUPT_LANE} alone rejected; wall per batch {first:.3f} s "
           f"first call, {wall:.3f} s second call; launches "
@@ -633,7 +845,7 @@ def parallel_paths(dev, card, spec_step, batch_step, expected, per_verify):
         raise AssertionError(f"(1, 2) mesh: decode_block {out}")
     check_launches("(1, 2) mesh, decode_block",
                    launches["mesh_2d_decode_block"],
-                   CAPTURE_RUNS * 2 * bn_db, CAPTURE_RUNS * 2)
+                   times(CAPTURE_RUNS * 2, db1))
     print(f"(1, 2) mesh: decode_block [valid, bad opening, last-round leaf, "
           f"quarantined]: {out['verdict'].tolist()}, per query shard "
           f"{shards}; wall {wall:.3f} s (capture) [{card}]")
@@ -655,7 +867,7 @@ def parallel_paths(dev, card, spec_step, batch_step, expected, per_verify):
     if n_accept != STEP_BATCH - 1:
         raise AssertionError(f"distributed, world size 1: n_accept {n_accept}")
     check_launches("distributed, world size 1", launches["distributed_1"],
-                   CAPTURE_RUNS * bn_step, CAPTURE_RUNS)
+                   times(CAPTURE_RUNS, step1))
     print(f"verify_batch_distributed, world size 1 (nccl): step B="
           f"{STEP_BATCH}, n_accept {n_accept}; wall per batch {wall:.3f} s "
           f"first call (capture), {wall2:.3f} s second call [{card}]")
@@ -675,7 +887,7 @@ def parallel_paths(dev, card, spec_step, batch_step, expected, per_verify):
             raise AssertionError(f"two ranks: rank {r['rank']} verdicts "
                                  f"wrong or n_accept {r['n_accept']}")
         check_launches(f"two ranks: rank {r['rank']}", r["launches"],
-                       CAPTURE_RUNS * bn_step, CAPTURE_RUNS)
+                       times(CAPTURE_RUNS, step1))
     launches["distributed_2_ranks"] = {
         k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
     print(f"verify_batch_distributed, two ranks as subprocesses "
@@ -692,9 +904,9 @@ def tool_runs(dev, card):
     """One short run of tools/micro_pb and of tools/scaling_bench; returns
     (their launches, micro_pb's report)."""
     launches = {}
-    reset_counters()
+    kernel_launches.reset()
     report = micro_pb.run(dev)
-    launches["micro_pb"] = read_counters()
+    launches["micro_pb"] = kernel_launches.read()
     if not (launches["micro_pb"]["poseidon_bn254"]
             and launches["micro_pb"]["poseidon_bn254_cios"]):
         raise AssertionError(f"micro_pb: launches {launches['micro_pb']}")
@@ -707,16 +919,18 @@ def tool_runs(dev, card):
     n_gpu = torch.cuda.device_count()
     buf = io.StringIO()
     verifier.compiled_verifier.cache_clear()  # its key captures here
-    reset_counters()
+    kernel_launches.reset()
     with contextlib.redirect_stdout(buf):
         rc = scaling_bench.main(["--sizes", f"1,{n_gpu + 1}", "--iters", "1"])
-    launches["scaling_bench"] = read_counters()
+    launches["scaling_bench"] = kernel_launches.read()
     if rc != 0:
         raise AssertionError(f"scaling_bench: exit {rc}")
     first, above = json.loads(buf.getvalue().strip().splitlines()[-1])["mesh"]
-    if above.get("status") != "not measured" or not (
-            launches["scaling_bench"]["poseidon_bn254"]
-            and launches["scaling_bench"]["poseidon_gl_transcript"]):
+    # whole verifications of step, each with every kernel of the path
+    step1 = per_verify("step", "mxu")
+    k = launches["scaling_bench"]["qe_inv"] // step1["qe_inv"]
+    if (above.get("status") != "not measured" or k < 1
+            or launches["scaling_bench"] != times(k, step1)):
         raise AssertionError(f"scaling_bench: {above}, launches "
                              f"{launches['scaling_bench']}")
     print(f"scaling_bench: mesh size 1, step B={first['global_batch']}: "
@@ -725,15 +939,20 @@ def tool_runs(dev, card):
     return launches, report
 
 
-def run_cli(argv, card):
-    """cli.main(argv) in this process; its report line, tagged with the card."""
+def run_cli(argv, card, fixture):
+    """cli.main(argv) in this process, the compiled cache emptied first; its
+    report line, tagged with the card; its launches: one key's warm-up and
+    capture of a ``fixture`` batch.  Returns the launches."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main(argv)
+        rc, _, launches = timed_path(lambda: cli.main(argv))
     if rc != 0:
         raise AssertionError(f"cli {' '.join(argv)}: exit {rc}\n{buf.getvalue()}")
+    check_launches(f"cli {argv[0]}", launches,
+                   times(CAPTURE_RUNS, per_verify(fixture, "mxu")))
     report = buf.getvalue().strip().splitlines()[-1]
-    print(f"cli {argv[0]}: {report} [{card}]")
+    print(f"cli {argv[0]}: {report}; launches {launches} [{card}]")
+    return launches
 
 
 def main():
@@ -791,6 +1010,18 @@ def main():
     print(f"one dependent Goldilocks product: {latency_s * 1e9:.3f} ns "
           f"({latency_s * rate / (SMS * IMAD_PER_SM_CLOCK):.1f} cycles at "
           f"clocks.max.sm) [{card}]")
+    chain_err = check_chain_kernels(dev, rng)
+    print(f"QE Horner, powers and inverse and the public-input sponge: "
+          f"bit-exact at {len(HORNER_CASES)}, {len(POWERS_CASES)} and "
+          f"{len(INV_CASES)} shapes, strided input, and n = {PI_HASH_N} at "
+          f"B = 1 and {STEP_BATCH}")
+    chain_t = time_chain_kernels(dev, rng, rate, latency_s)
+    for name, t in chain_t.items():
+        print(f"{name} at {t['shape']}: kernel {t['ms']:.5f} ms, plain "
+              f"{t['plain_ms']:.4f} ms in a graph and {t['plain_eager_ms']:.2f}"
+              f" ms eagerly; bound {t['bound_ms']:.5f} ms ({t['bound_by']})"
+              + (f", the scan's chain {t['scan_latency_ms']:.5f} ms"
+                 if "scan_latency_ms" in t else "") + f" [{card}]")
 
     # -- 3. the main path (mxu, the default), then the cios path
     good = serde.ingest_proof(spec_step, raw_step, vraw_step)
@@ -819,8 +1050,9 @@ def main():
           f"step batch: {launches_step}")
     # -- 4. the compiled verifier: replay against eager, re-fed and
     #       malformed batches, launches inside a replay, walls
-    replay_kernels = {"mxu": compiled_checks(
-        "mxu", dev, card, spec_step, batch_step, expected, spec_db, batch_db)}
+    replay_kernels, replay = {}, {}
+    replay_kernels["mxu"], replay["mxu"] = compiled_checks(
+        "mxu", dev, card, spec_step, batch_step, expected, spec_db, batch_db)
 
     got_db_c, launches_c, launches_c_step, step_c_s = main_path("cios", *args)
     for key in ("verdict", "plonk_ok", "fri_ok"):
@@ -834,7 +1066,7 @@ def main():
     print(f"cios: launches on the path: {launches_c}; of them the step "
           f"batch: {launches_c_step}")
 
-    replay_kernels["cios"] = compiled_checks(
+    replay_kernels["cios"], replay["cios"] = compiled_checks(
         "cios", dev, card, spec_step, batch_step, expected, spec_db, batch_db)
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"peak device memory with the graphs held (step B={STEP_BATCH} and "
@@ -861,33 +1093,37 @@ def main():
             if busy <= 0 or per_kernel[key][0] == 0:
                 raise AssertionError(f"{impl}: the profile shows no {key} "
                                      f"launch")
+        want = profiled_launches("step", impl)
+        got = {k: per_kernel[k][0] for k in want}
+        if got != want:
+            raise AssertionError(f"{impl}: the eager profile shows {got}, "
+                                 f"expected {want}")
         kern = ", ".join(f"{k} {n} launches {t:.6f} s"
                          for k, (n, t) in per_kernel.items() if n)
         print(f"profile {impl} step B={STEP_BATCH}, eager: wall {wall:.4f} s "
               f"under the profiler, {n_dev} device events, device busy "
               f"{busy:.4f} s ({busy / wall:.4f} of the wall); {kern} [{card}]")
 
-    # -- 6. soundness matrix on step
+    # -- 6. soundness matrix on step, its key captured here
     for impl in ("mxu", "cios"):
         with pb.use_impl(impl):
-            sm = soundness_matrix.run("step", dev)
+            sm, _, sm_launches = timed_path(
+                lambda: soundness_matrix.run("step", dev))
         if not sm["all_correct"]:
             raise AssertionError(f"{impl}: soundness matrix {sm['rows']}")
+        check_launches(f"soundness matrix {impl}", sm_launches,
+                       times(CAPTURE_RUNS, per_verify("step", impl)))
         print(f"soundness matrix {impl}: step, {sm['lanes']} lanes, "
-              f"all_correct {sm['all_correct']}")
+              f"all_correct {sm['all_correct']}; launches {sm_launches}")
 
     # -- 7. the command line
     run_cli(["verify", "--circuit", str(TESTDATA / "decode_block"),
-             "--batch", "4"], card)
+             "--batch", "4"], card, "decode_block")
     run_cli(["bench", "--circuit", str(TESTDATA / "step"),
-             "--batch", str(STEP_BATCH), "--iters", "3"], card)
+             "--batch", str(STEP_BATCH), "--iters", "3"], card, "step")
 
     # -- 8. the parallel paths and their tools
-    per_verify = (launches_step["poseidon_bn254"] // CAPTURE_RUNS,
-                  (launches["poseidon_bn254"]
-                   - launches_step["poseidon_bn254"]) // CAPTURE_RUNS)
-    par_launches = parallel_paths(dev, card, spec_step, batch_step, expected,
-                                  per_verify)
+    par_launches = parallel_paths(dev, card, spec_step, batch_step, expected)
     tool_launches, _ = tool_runs(dev, card)
     par_launches.update(tool_launches)
 
@@ -944,11 +1180,40 @@ def main():
          "ms": tr_ms, "plain_ms": tr_plain_ms,
          "bound_ms": tr_bound, "bound_by": tr_by, "bound_form": tr_form,
          "library_ms": NO_LIBRARY,
-         "launches_in_one_replay":
+         "transcript_kernel_launches_in_one_replay":
              replay_kernels["mxu"]["poseidon_gl_transcript"][0],
          "launches_on_parallel_paths": on_parallel_paths(
              "poseidon_gl_transcript")},
+        {"name": "poseidon_gl_pi_hash", "route": "cuda",
+         "source": "plonky2_tpu_torch/csrc/poseidon_gl_transcript.cu",
+         "replaces": "plonky2_tpu/hash/poseidon_gl.py:221",
+         "launches": launches["poseidon_gl_pi_hash"],
+         "max_abs_err": chain_err["poseidon_gl_pi_hash"],
+         **chain_t["poseidon_gl_pi_hash"], "library_ms": NO_LIBRARY,
+         "transcript_kernel_launches_in_one_replay":
+             replay_kernels["mxu"]["poseidon_gl_transcript"][0],
+         "launches_on_parallel_paths": on_parallel_paths(
+             "poseidon_gl_pi_hash")},
     ]
+    for name, replaces in (
+            ("qe_horner", "plonky2_tpu/fields/goldilocks_ext.py:226"),
+            ("qe_powers", "plonky2_tpu/fields/goldilocks_ext.py:237"),
+            ("qe_inv", "plonky2_tpu/fields/goldilocks.py:365")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "plonky2_tpu_torch/csrc/goldilocks_ext.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": chain_err[name], **chain_t[name],
+            "library_ms": NO_LIBRARY,
+            "launches_in_one_replay": replay_kernels["mxu"][name][0],
+            "device_s_in_one_replay": replay_kernels["mxu"][name][1],
+            "launches_on_parallel_paths": on_parallel_paths(name)})
+    print(f"step B={STEP_BATCH} replay, graph alone (median of "
+          f"{REPLAYS}): mxu {replay['mxu']['graph_median_s']:.4f} s, cios "
+          f"{replay['cios']['graph_median_s']:.4f} s; device events in one "
+          f"profiled replay: mxu {replay['mxu']['device_events']}, cios "
+          f"{replay['cios']['device_events']} (with the plain chains: "
+          f"{PLAIN_CHAINS_REPLAY_EVENTS}) [{card}]")
     print(f"kernel bounds at the timed shapes: BN254 {lanes[-1]} lanes "
           f"{bn_bound:.4f} ms, {lanes[0]} lanes {bn_bound_small:.4f} ms "
           f"({bn_form}), transcript {n_perms} x "

@@ -9,7 +9,14 @@
 // S-box, 4 + 4 full rounds with the small-entry MDS matrix, 22 fast partial
 // rounds with init_mat12, w_full and vs_full), then a store of the 12 state
 // words.  Every value stays canonical, so the states are bit-exact with the
-// torch plain version and _run_transcript_jnp.
+// torch plain version and _run_transcript_jnp.  The Goldilocks arithmetic is
+// in goldilocks.cuh.
+//
+// The same launch also computes the public-input hash (HashNoPad, the JAX
+// package's absorb scan at plonky2_tpu/hash/poseidon_gl.py:221): n inputs
+// are ceil(n/8) absorb blocks from a zero state, slot s of block p taken
+// where 8p + s < n, and the hash is words 0..3 of the last state
+// (kernels/poseidon_gl_transcript.py hash_no_pad_kernel).
 //
 // What bounds it on the H100: latency.  The scan is a chain of dependent
 // steps and a batch has only B ~ 256 chains for 132 SMs, so no multiply
@@ -59,16 +66,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "goldilocks.cuh"
 
-typedef unsigned long long u64;
+namespace {
 
 constexpr int WIDTH = 12;
 constexpr int RATE = 8;
 constexpr int HALF_FULL = 4;
 constexpr int N_PARTIAL = 22;
-constexpr u64 P = 0xFFFFFFFF00000001ULL;
-constexpr u64 EPSILON = 0xFFFFFFFFULL;  // 2^64 mod p
 constexpr int GROUP = 16;               // threads a proof
 constexpr int THREADS = 32;             // a block: one warp, two proofs
 constexpr int PROOFS = THREADS / GROUP;
@@ -85,31 +90,6 @@ constexpr int OFF_W_FULL = OFF_INIT + WIDTH * WIDTH;          // [22][12]
 constexpr int OFF_VS_FULL = OFF_W_FULL + N_PARTIAL * WIDTH;   // [22][12]
 constexpr int OFF_MDS = OFF_VS_FULL + N_PARTIAL * WIDTH;      // [12 out][12 in]
 constexpr int N_CONST = OFF_MDS + WIDTH * WIDTH;
-
-__device__ __forceinline__ u64 canon(u64 x) { return x >= P ? x - P : x; }
-
-__device__ __forceinline__ u64 gl_add(u64 a, u64 b) {
-  u64 s = a + b;
-  // a + b < 2p: a wrapped sum plus EPSILON stays below 2^64
-  if (s < a) s += EPSILON;
-  return canon(s);
-}
-
-// (hi, lo) 128-bit value -> canonical residue
-__device__ __forceinline__ u64 reduce128(u64 lo, u64 hi) {
-  u64 hi_hi = hi >> 32;
-  u64 hi_lo = hi & EPSILON;
-  u64 t0 = lo - hi_hi;          // lo - hi_hi * 2^96 == lo + hi_hi * (-1)
-  if (lo < hi_hi) t0 -= EPSILON;  // borrow of 2^64 == EPSILON
-  u64 t1 = hi_lo * EPSILON;     // hi_lo * 2^64
-  u64 t2 = t0 + t1;
-  if (t2 < t1) t2 += EPSILON;   // carry of 2^64
-  return canon(t2);
-}
-
-__device__ __forceinline__ u64 gl_mul(u64 a, u64 b) {
-  return reduce128(a * b, __umul64hi(a, b));
-}
 
 // x^7 in three dependent products
 __device__ __forceinline__ u64 sbox(u64 x) {

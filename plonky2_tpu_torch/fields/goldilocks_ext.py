@@ -3,8 +3,13 @@ extension algebra over it, on torch tensors.
 
 Counterpart of ``plonky2_tpu/fields/goldilocks_ext.py``: a QE value is a pair
 ``(c0, c1)`` of base elements (each a (lo, hi) pair of int64 tensors); an
-extension-algebra value is a pair of QE values.  Sequential chains (Horner,
-powers) are plain Python loops: PyTorch runs eagerly.
+extension-algebra value is a pair of QE values.
+
+The sequential chains that the JAX package writes as ``jax.lax.scan``
+(``horner``, ``powers``, and ``inv`` through the base field's inversion)
+run on the card as the CUDA kernels of ``kernels/goldilocks_ext.py``; their
+plain versions (``horner_plain``, ``powers_plain``, ``inv_plain``) are
+Python loops of torch ops, taken only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -93,7 +98,22 @@ def scalar_mul_const(a, c):
     return (gl.mul_const(a[0], c), gl.mul_const(a[1], c))
 
 
+def _kernels(a):
+    """The CUDA kernels' module for a value on a GPU, None on the CPU."""
+    if device_of(a).type == "cpu":
+        return None
+    from ..kernels import goldilocks_ext
+    return goldilocks_ext
+
+
 def inv(a):
+    """a^-1 elementwise, 0 for 0: the CUDA kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    k = _kernels(a)
+    return inv_plain(a) if k is None else k.inv(a)
+
+
+def inv_plain(a):
     """a^-1 = conj(a) / N(a), conj(a) = (a0, DTH_ROOT * a1); 0 for 0."""
     conj = (a[0], gl.mul_const(a[1], gl.DTH_ROOT))
     norm = gl.reduce_digits(
@@ -141,6 +161,15 @@ def reshape(a, shape):
 
 
 def horner(terms, x):
+    """sum_i terms[..., i] * x^i over the last axis: the CUDA kernel on a
+    CUDA tensor, the plain version on a CPU tensor.
+
+    terms: QE (..., n); x: QE broadcastable to (...)."""
+    k = _kernels(terms)
+    return horner_plain(terms, x) if k is None else k.horner(terms, x)
+
+
+def horner_plain(terms, x):
     """sum_i terms[..., i] * x^i over the last axis.
 
     terms: QE (..., n); x: QE broadcastable to (...)."""
@@ -153,6 +182,13 @@ def horner(terms, x):
 
 
 def powers(x, n):
+    """[x^0, .., x^(n-1)] as a QE array (..., n): the CUDA kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    k = _kernels(x)
+    return powers_plain(x, n) if k is None else k.powers(x, n)
+
+
+def powers_plain(x, n):
     """[x^0, .., x^(n-1)] as a QE array (..., n)."""
     out = [ones_like(x)]
     for _ in range(n - 1):

@@ -108,6 +108,16 @@ def permute(state):
 
 
 def hash_no_pad(inputs, n_outputs=HASH_SIZE):
+    """HashNoPad: one launch of the transcript kernel on a CUDA tensor
+    (``kernels/poseidon_gl_transcript.hash_no_pad_kernel``), the plain
+    version on a CPU tensor."""
+    if inputs[0].device.type == "cpu":
+        return hash_no_pad_plain(inputs, n_outputs)
+    from ..kernels import poseidon_gl_transcript as kernel
+    return kernel.hash_no_pad_kernel(inputs, n_outputs)
+
+
+def hash_no_pad_plain(inputs, n_outputs=HASH_SIZE):
     """HashNoPad: absorb in rate-8 chunks (overwrite), squeeze n_outputs.
 
     inputs: GL (..., n) -> GL (..., n_outputs); empty input gives zeros."""

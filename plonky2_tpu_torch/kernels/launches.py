@@ -1,0 +1,35 @@
+"""The kernel wrappers' launch counters, by kernel name.
+
+Each wrapper adds one to its ``.launches`` where it launches its kernel and
+nowhere else, so a run that sets the counters to 0 before a path and reads
+them after it shows which kernels the path went through.  A CUDA graph's
+replay launches its kernels without calling a wrapper, so a replay counts
+nothing here (``torch.profiler`` sees those launches).
+"""
+
+from __future__ import annotations
+
+from . import goldilocks_ext as kq
+from . import poseidon_bn254 as kb
+from . import poseidon_bn254_cios as kc
+from . import poseidon_gl_transcript as kt
+
+
+def counters():
+    """{kernel name: the wrapper that carries its ``.launches``}."""
+    return {"poseidon_bn254": kb.permute,
+            "poseidon_bn254_cios": kc.permute,
+            "poseidon_gl_transcript": kt.run_transcript_kernel,
+            "poseidon_gl_pi_hash": kt.hash_no_pad_kernel,
+            "qe_horner": kq.horner,
+            "qe_powers": kq.powers,
+            "qe_inv": kq.inv}
+
+
+def reset():
+    for wrapper in counters().values():
+        wrapper.launches = 0
+
+
+def read():
+    return {name: wrapper.launches for name, wrapper in counters().items()}

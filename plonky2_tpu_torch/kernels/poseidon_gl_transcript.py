@@ -14,9 +14,15 @@ As on the TPU, the absorb blocks are gathered outside the kernel into
 observed sequence at ``schedule.pi_hash_offset``.  The result is the stacked
 post-permutation states, a GL pair of shape ``(n_perms, B, 12)``.
 
+The public-input hash (``hash/poseidon_gl.hash_no_pad``) is the same sponge
+over the inputs cut into blocks of 8 (``hash_absorb``): on the card it is
+a second launch of this kernel (``hash_no_pad_kernel``).  ``sponge_plain``
+is the scan both plain versions share.
+
 ``run_transcript`` launches the kernel for CUDA tensors and raises if it
 cannot; it takes ``run_transcript_plain`` only for CPU tensors.
-``run_transcript_kernel.launches`` counts kernel launches.
+``run_transcript_kernel.launches`` and ``hash_no_pad_kernel.launches``
+count kernel launches.
 """
 
 from __future__ import annotations
@@ -63,14 +69,16 @@ def gather_absorb(schedule, obs, pi_hash):
     return blocks(lo).contiguous(), blocks(hi).contiguous()
 
 
-def run_transcript_plain(schedule, obs, pi_hash):
-    """Torch scan, the same function as the kernel (and _run_transcript_jnp)."""
-    absorb = gather_absorb(schedule, obs, pi_hash)
-    mask = schedule_tables(schedule, obs[0].device)[1].bool()  # (n_perms, 8)
-    B = obs[0].shape[0]
-    state = gl.zeros((B, WIDTH), obs[0].device)
+def sponge_plain(absorb, mask):
+    """The kernel's function in torch: from a zero state, for each block p,
+    rate slot s overwritten by absorb[p, s] where mask[p, s], then the
+    permutation.  absorb: GL pair (n_perms, 8, B); mask: (n_perms, 8) ->
+    the states, GL pair (n_perms, B, 12)."""
+    n_perms, _, B = absorb[0].shape
+    mask = mask.bool()
+    state = gl.zeros((B, WIDTH), absorb[0].device)
     out_lo, out_hi = [], []
-    for p in range(schedule.n_perms):
+    for p in range(n_perms):
         blk = (absorb[0][p].T, absorb[1][p].T)                     # (B, 8)
         rate = gl.select(mask[p], blk, (state[0][:, :RATE], state[1][:, :RATE]))
         state = pgl.permute(gl.concat([rate, (state[0][:, RATE:],
@@ -78,6 +86,30 @@ def run_transcript_plain(schedule, obs, pi_hash):
         out_lo.append(state[0])
         out_hi.append(state[1])
     return torch.stack(out_lo), torch.stack(out_hi)
+
+
+def run_transcript_plain(schedule, obs, pi_hash):
+    """Torch scan, the same function as the kernel (and _run_transcript_jnp)."""
+    absorb = gather_absorb(schedule, obs, pi_hash)
+    return sponge_plain(absorb, schedule_tables(schedule, obs[0].device)[1])
+
+
+def hash_absorb(inputs):
+    """HashNoPad's inputs, GL pair (..., n) with n > 0, as the sponge's
+    absorb blocks, GL pair (ceil(n/8), 8, B) with B the lead dims flattened
+    and the last block padded with zeros, and its mask (ceil(n/8), 8) uint8:
+    slot s of block p is taken where 8p + s < n.  Torch ops on the inputs'
+    device; the mask is made once per n and device."""
+    n = inputs[0].shape[-1]
+    n_perms = -(-n // RATE)
+
+    def blocks(x):
+        x = torch.nn.functional.pad(x.reshape(-1, n), (0, n_perms * RATE - n))
+        return x.reshape(-1, n_perms, RATE).permute(1, 2, 0).contiguous()
+
+    mask = np.arange(n_perms * RATE).reshape(n_perms, RATE) < n
+    return ((blocks(inputs[0]), blocks(inputs[1])),
+            gl.device_table(mask, inputs[0].device, np.uint8))
 
 
 @functools.lru_cache(maxsize=16)
@@ -100,28 +132,61 @@ def _kernel_consts(device):
     return torch.from_numpy(buf.view(np.int64).copy()).to(device)
 
 
-def run_transcript_kernel(schedule, obs, pi_hash):
-    """One launch of the transcript kernel; CUDA tensors only."""
-    device = obs[0].device
+def _check(tensors, what):
+    device = tensors[0].device
     if device.type != "cuda":
-        raise build.KernelError(f"no transcript kernel for {device}")
-    for t in (*obs, *pi_hash):
+        raise build.KernelError(f"no {what} kernel for {device}")
+    for t in tensors:
         if t.dtype != torch.int64 or t.device != device:
-            raise ValueError("obs and pi_hash must be int64 on one CUDA device")
-    absorb_lo, absorb_hi = gather_absorb(schedule, obs, pi_hash)
-    _, mask = schedule_tables(schedule, device)
-    n_perms, B = schedule.n_perms, obs[0].shape[0]
+            raise ValueError(f"{what}: inputs must be int64 on one CUDA device")
+    return device
+
+
+def _sponge_kernel(absorb, mask, what):
+    """One launch of the kernel on contiguous absorb blocks (n_perms, 8, B)
+    and a uint8 mask (n_perms, 8): the states as (n_perms, 12, B) planes."""
+    device = absorb[0].device
+    n_perms, _, B = absorb[0].shape
     out_lo = torch.empty((n_perms, WIDTH, B), dtype=torch.int64, device=device)
     out_hi = torch.empty_like(out_lo)
     consts = _kernel_consts(device)
     with torch.cuda.device(device):  # the launch goes to the current device
         rc = build.library().p2t_transcript(
-            absorb_lo.data_ptr(), absorb_hi.data_ptr(), mask.data_ptr(),
+            absorb[0].data_ptr(), absorb[1].data_ptr(), mask.data_ptr(),
             consts.data_ptr(), out_lo.data_ptr(), out_hi.data_ptr(), n_perms,
             B, build.stream_handle(device))
-    build.check(rc, "transcript launch")
+    build.check(rc, f"{what} launch")
+    return out_lo, out_hi
+
+
+def run_transcript_kernel(schedule, obs, pi_hash):
+    """One launch of the transcript kernel; CUDA tensors only."""
+    device = _check((*obs, *pi_hash), "transcript")
+    absorb = gather_absorb(schedule, obs, pi_hash)
+    _, mask = schedule_tables(schedule, device)
+    out_lo, out_hi = _sponge_kernel(absorb, mask, "transcript")
     run_transcript_kernel.launches += 1
     return out_lo.transpose(1, 2), out_hi.transpose(1, 2)
+
+
+def hash_no_pad_kernel(inputs, n_outputs=pgl.HASH_SIZE):
+    """HashNoPad (``hash/poseidon_gl.hash_no_pad_plain``) as one launch of
+    the transcript kernel over ``hash_absorb``'s blocks: words 0..n_outputs-1
+    of the last state.  inputs: GL pair (..., n) on a CUDA device -> GL pair
+    (..., n_outputs); n = 0 gives zeros without a launch.
+    ``hash_no_pad_kernel.launches`` counts its launches."""
+    device = _check(inputs, "public-input hash")
+    lead, n = tuple(inputs[0].shape[:-1]), inputs[0].shape[-1]
+    if n == 0:
+        return gl.zeros(lead + (n_outputs,), device)
+    absorb, mask = hash_absorb(inputs)
+    out_lo, out_hi = _sponge_kernel(absorb, mask, "public-input hash")
+    hash_no_pad_kernel.launches += 1
+
+    def words(x):
+        return x[-1, :n_outputs].T.reshape(lead + (n_outputs,))
+
+    return words(out_lo), words(out_hi)
 
 
 def mul_chain(x0, n, device):
@@ -145,3 +210,4 @@ def run_transcript(schedule, obs, pi_hash):
 
 
 run_transcript_kernel.launches = 0
+hash_no_pad_kernel.launches = 0

@@ -38,9 +38,7 @@ from pathlib import Path
 import torch
 
 from .. import verifier
-from ..kernels import poseidon_bn254 as kb
-from ..kernels import poseidon_bn254_cios as kc
-from ..kernels import poseidon_gl_transcript as kt
+from ..kernels import launches as kernel_launches
 from ..parallel import distributed
 from ..proof import serde
 from ..proof.fixtures import corrupt_wires_opening, load_fixture
@@ -150,10 +148,7 @@ def run(args):
     local = make_lanes(circuit, args.rank * args.local_batch,
                        args.local_batch, args.corrupt)
 
-    counters = {"poseidon_bn254": kb.permute, "poseidon_bn254_cios": kc.permute,
-                "poseidon_gl_transcript": kt.run_transcript_kernel}
-    for c in counters.values():
-        c.launches = 0
+    kernel_launches.reset()
     seconds, first = [], None
     for _ in range(args.iters):
         t0 = time.perf_counter()
@@ -163,7 +158,7 @@ def run(args):
         seconds.append(time.perf_counter() - t0)
         if first is None:
             first = out
-            launches = {k: c.launches for k, c in counters.items()}
+            launches = kernel_launches.read()
     result = {"rank": args.rank, "world_size": args.world_size,
               "backend": torch.distributed.get_backend(),
               "device": verifier.device_name(device),

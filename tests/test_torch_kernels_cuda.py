@@ -15,7 +15,10 @@ import torch
 
 from plonky2_tpu_torch.fields import bn254
 from plonky2_tpu_torch.fields import goldilocks as gl
+from plonky2_tpu_torch.fields import goldilocks_ext as qe
 from plonky2_tpu_torch.hash import poseidon_bn254 as pb
+from plonky2_tpu_torch.hash import poseidon_gl as pgl
+from plonky2_tpu_torch.kernels import goldilocks_ext as kq
 from plonky2_tpu_torch.kernels import poseidon_bn254 as kb
 from plonky2_tpu_torch.kernels import poseidon_bn254_cios as kc
 from plonky2_tpu_torch.kernels import poseidon_gl_transcript as kt
@@ -147,3 +150,130 @@ def test_gl_mul_chain_squares_in_goldilocks(dev):
     n = 1000
     got = int(kt.mul_chain(3, n, dev).item()) % (1 << 64)
     assert got == pow(3, pow(2, n, gl.P - 1), gl.P)
+
+
+# -- the quadratic-extension chains and the public-input sponge ------------
+
+GL_EDGE = [0, 1, gl.P - 1, (1 << 32) - 1, 1 << 32, gl.P - (1 << 32)]
+
+
+def _qe_vals(shape, seed, zero_lanes=0):
+    """Random QE values (c0, c1) as uint64 arrays; the first elements take
+    every pair of GL_EDGE but (0, 0), the last ``zero_lanes`` are 0."""
+    rng = np.random.default_rng(seed)
+    c = [np.array(rng.integers(0, gl.P, size=shape, dtype=np.uint64))
+         for _ in range(2)]
+    f0, f1 = c[0].reshape(-1), c[1].reshape(-1)
+    pairs = [(a, b) for a in GL_EDGE for b in GL_EDGE if a or b][:f0.size]
+    for i, (a, b) in enumerate(pairs):
+        f0[i], f1[i] = a, b
+    if zero_lanes:
+        f0[-zero_lanes:] = 0
+        f1[-zero_lanes:] = 0
+    return c
+
+
+def _qe(vals, dev):
+    return tuple(tuple(t.reshape(np.shape(v)) for t in gl.split_u64(v, dev))
+                 for v in vals)
+
+
+def _qe_equal(got, want):
+    return all(g.shape == w.shape and torch.equal(g, w)
+               for gc, wc in zip(got, want) for g, w in zip(gc, wc))
+
+
+def _strided(a):
+    """The same QE value through a transposed, non-contiguous view."""
+    return tuple(tuple(t.T.contiguous().T for t in c) for c in a)
+
+
+# (terms shape, x shape): the main path's horner calls at B=256 (step;
+# decode_block's final polynomial is (B, 1, 16) and its FRI batch 257),
+# lane counts off the 64-thread block, n = 1, and terms that broadcast.
+QE_HORNER_CASES = [((256, 63), ()), ((256, 4, 4), ()), ((256, 145), (256,)),
+                   ((256, 2, 8), (256, 1)), ((256, 258), (256,)),
+                   ((256, 257), (256,)), ((256, 2), (256,)),
+                   ((256, 1, 32), (256, 28)), ((256, 1, 16), (256, 28)),
+                   ((1, 5), (1,)), ((31, 7), (31,)), ((33, 7), (33,)),
+                   ((255, 9), (255,)), ((257, 9), (257,)), ((65, 1), (65,)),
+                   ((1, 9), (40,))]
+
+
+@pytest.mark.parametrize("shapes", QE_HORNER_CASES,
+                         ids=[f"{t}-{x}" for t, x in QE_HORNER_CASES])
+def test_qe_horner_kernel_matches_plain(dev, shapes):
+    t_shape, x_shape = shapes
+    terms = _qe(_qe_vals(t_shape, seed=sum(t_shape)), dev)
+    x = _qe(_qe_vals(x_shape, seed=len(x_shape) + 1), dev)
+    before = kq.horner.launches
+    got = qe.horner(terms, x)
+    assert kq.horner.launches == before + 1
+    want = qe.horner_plain(terms, x)
+    torch.cuda.synchronize()
+    assert _qe_equal(got, want)
+
+
+def test_qe_horner_kernel_takes_strided_input(dev):
+    terms = _strided(_qe(_qe_vals((256, 145), seed=3), dev))
+    x = _qe(_qe_vals((256,), seed=4), dev)
+    assert not terms[0][0].is_contiguous()
+    assert _qe_equal(kq.horner(terms, x), qe.horner_plain(terms, x))
+
+
+@pytest.mark.parametrize("lanes,n", [(256, 258), (256, 257), (256, 2),
+                                     (1, 5), (31, 5), (33, 5), (255, 9),
+                                     (257, 9), (256, 1)])
+def test_qe_powers_kernel_matches_plain(dev, lanes, n):
+    x = _qe(_qe_vals((lanes,), seed=lanes + n), dev)
+    before = kq.powers.launches
+    got = qe.powers(x, n)
+    assert kq.powers.launches == before + 1
+    want = qe.powers_plain(x, n)
+    torch.cuda.synchronize()
+    assert _qe_equal(got, want)
+
+
+def test_qe_powers_kernel_takes_strided_input(dev):
+    x = _qe(_qe_vals((16, 16), seed=9), dev)
+    x = tuple(tuple(t.T for t in c) for c in x)
+    assert not x[0][0].is_contiguous()
+    assert _qe_equal(kq.powers(x, 6), qe.powers_plain(x, 6))
+
+
+# The main path's inverses at B=256, lane counts off the 64-thread block;
+# each with lanes of 0, which give 0.
+@pytest.mark.parametrize("shape", [(256,), (256, 28), (256, 28, 16), (1,),
+                                   (31,), (33,), (255,), (257,)])
+def test_qe_inv_kernel_matches_plain(dev, shape):
+    a = _qe(_qe_vals(shape, seed=int(np.prod(shape)), zero_lanes=1), dev)
+    before = kq.inv.launches
+    got = qe.inv(a)
+    assert kq.inv.launches == before + 1
+    want = qe.inv_plain(a)
+    torch.cuda.synchronize()
+    assert _qe_equal(got, want)
+    assert all(int(t.reshape(-1)[-1]) == 0 for c in got for t in c)
+
+
+def test_qe_inv_kernel_takes_strided_input(dev):
+    a = _strided(_qe(_qe_vals((28, 256), seed=5), dev))
+    assert not a[0][0].is_contiguous()
+    assert _qe_equal(kq.inv(a), qe.inv_plain(a))
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 36])
+@pytest.mark.parametrize("batch", [1, 256])
+def test_pi_hash_sponge_matches_plain(dev, n, batch):
+    rng = np.random.default_rng(n + batch)
+    vals = rng.integers(0, gl.P, size=(batch, n), dtype=np.uint64)
+    flat = vals.reshape(-1)
+    flat[:min(flat.size, 3)] = [0, 1, gl.P - 1][:flat.size]
+    inputs = gl.split_u64(vals, dev)
+    before = kt.hash_no_pad_kernel.launches
+    got = pgl.hash_no_pad(inputs)
+    assert kt.hash_no_pad_kernel.launches == before + (n > 0)
+    want = pgl.hash_no_pad_plain(inputs)
+    torch.cuda.synchronize()
+    assert got[0].shape == (batch, 4)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
