@@ -22,7 +22,15 @@
    fixtures, B=256) and at lane counts off their 64-thread blocks, with
    broadcast and strided inputs and the edge values, and each is timed at
    its largest main-path shape through a CUDA graph of 20 launches beside
-   its plain version's replay and eager times;
+   its plain version's replay and eager times; the PLONK stage's product
+   kernels (Goldilocks a b and a c, QE a b and a b + c) are checked
+   bit-exact at the main path's shapes (B=256, the largest (256, 28, 16, 8))
+   and at lane counts off their 128-thread blocks, on every broadcast
+   pattern of the call sites, strided views, an empty lead shape and the
+   constants 0, 1, 7 and DTH_ROOT, and the coset-interpolation scan on both
+   fixtures' gates at B=256 and odd lane counts against its plain version
+   on CPU copies; each is timed at its largest main-path shape in a CUDA
+   graph of 20 launches beside its plain version (every product plain);
 4. the main path under PLONKY2_TPU_PB_IMPL=mxu, through the compiled
    verifier (one CUDA graph per key, captured at the key's first call; the
    cache emptied first): verifies 256 copies of testdata/step with one
@@ -32,8 +40,10 @@
    warm-up and its capture but no replay, must read kernel A 246 times
    (2 x 123), the transcript kernel 4 times, the public-input sponge 2
    times (step has 36 public inputs, decode_block none), QE Horner 32, QE
-   powers 8 and QE inverse 28 times (8, 2 and 7 a verification), the CIOS
-   kernel never;
+   powers 8 and QE inverse 28 times (8, 2 and 7 a verification), the
+   Goldilocks product 72, the product by a constant 154, the QE product
+   614 and the interpolation scan 4 times (18, 39 and 38, 154 and 153, 1 a
+   verification of step and decode_block), the CIOS kernel never;
 5. the same path under PLONKY2_TPU_PB_IMPL=cios: the same verdicts, the CIOS
    kernel and the transcript kernel launched, kernel A not;
 6. the compiled verifier under each setting: the replay's verdict, plonk_ok
@@ -43,11 +53,12 @@
    batch with one query round raises ValueError and the next replay is
    still right; one replay under torch.profiler launches kernel A (or the
    CIOS kernel) 63 times, the transcript kernel twice (the sponge and the
-   transcript), QE Horner 8, QE powers 2 and QE inverse 7 times, and gives
-   the device's events and busy share; the eager wall against the median of
-   5 replays,
-   the first call with its warm-up and capture, and the peak device memory
-   with the graphs held;
+   transcript), QE Horner 8, QE powers 2 and QE inverse 7 times, the
+   products 18, 39 and 154 times and the interpolation scan once, and gives
+   the device's events (against 61,926 with the products plain) and busy
+   share; the eager wall against the median of 5 replays, the first call
+   with its warm-up and capture, and the peak device memory with the graphs
+   held;
 7. stage times of the step batch (tools/profile_verify, eager) under both
    settings; one eager step batch under torch.profiler under each setting:
    kernel launches seen on the device, the device's busy share of the wall,
@@ -87,6 +98,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import subprocess
 import sys
 import time
@@ -99,10 +111,12 @@ from plonky2_tpu_torch import cli, verifier
 from plonky2_tpu_torch.fields import bn254
 from plonky2_tpu_torch.fields import goldilocks as gl
 from plonky2_tpu_torch.fields import goldilocks_ext as qe
+from plonky2_tpu_torch.gates import gates as G
 from plonky2_tpu_torch.hash import poseidon_bn254 as pb
 from plonky2_tpu_torch.hash import poseidon_gl as pgl
 from plonky2_tpu_torch.kernels import build
 from plonky2_tpu_torch.kernels import goldilocks_ext as kq
+from plonky2_tpu_torch.kernels import goldilocks_mul as km
 from plonky2_tpu_torch.kernels import launches as kernel_launches
 from plonky2_tpu_torch.kernels import poseidon_bn254 as kb
 from plonky2_tpu_torch.kernels import poseidon_bn254_cios as kc
@@ -176,11 +190,22 @@ DECODE_BN254_LAUNCHES = 60
 # decode_block: none, whose hash is zeros without a launch).
 CHAIN_LAUNCHES = {"qe_horner": 8, "qe_powers": 2, "qe_inv": 7}
 PI_HASH_LAUNCHES = {"step": 1, "decode_block": 0}
+# Of one verification: the calls of fields/goldilocks.mul and mul_const
+# (c not 0 or 1) and of fields/goldilocks_ext.mul and mul_add (square,
+# ea_mul, prod_axis, div, ... reach them), and the interpolation gate's
+# scan; the same on a query shard (counted on the CPU through each
+# wrapper's arithmetic, the dispatch forced).
+PRODUCT_LAUNCHES = {
+    "step": {"gl_mul": 18, "gl_mul_const": 39, "qe_mul": 154,
+             "coset_interp_scan": 1},
+    "decode_block": {"gl_mul": 18, "gl_mul_const": 38, "qe_mul": 153,
+                     "coset_interp_scan": 1}}
 REPLAYS = 5
 # A step replay issued 367,045 device events while the chains and the
-# public-input hash still ran as plain torch (PERF.md §6, NVIDIA H100 80GB
-# HBM3, 700.00 W).
+# public-input hash still ran as plain torch, and 61,926 with them on the
+# card and the products plain (PERF.md §6, NVIDIA H100 80GB HBM3, 700.00 W).
 PLAIN_CHAINS_REPLAY_EVENTS = 367045
+PLAIN_PRODUCTS_REPLAY_EVENTS = 61926
 # The chain kernels' checked shapes: (terms, x) of every horner call at B=256
 # on step and decode_block (the final polynomial is 32 and 16 long, the FRI
 # batch 258 and 257), lane counts off the 64-thread blocks, n = 1, and terms
@@ -207,6 +232,23 @@ GL_EDGE = [0, 1, gl.P - 1, (1 << 32) - 1, 1 << 32, gl.P - (1 << 32)]
 QE_STEP_IMADS = 4 * 8
 QE_INV_IMADS = 14 * 8 + 65 * 6
 QE_INV_DEPTH = 75  # dependent products of one inverse (csrc/goldilocks_ext.cu)
+# The products: a Goldilocks product is 8 IMADs and reads 32 B and writes
+# 16 B an element (a product by a constant reads 16 B); a QE product is 5
+# Goldilocks products (W b1 first) and reads 64 B and writes 32 B.  A step
+# of the interpolation scan is 70 Goldilocks products: val_j w_j (4) and
+# three extension-algebra products of 4 QE products and 2 products by W
+# each; each running value waits on 3 dependent products a step.
+GL_MUL_IMADS = 8
+QE_MUL_IMADS = 5 * 8
+SCAN_STEP_IMADS = 70 * 8
+SCAN_STEP_DEPTH = 3
+# The product kernels' checked shapes: the main path's at B=256 (the
+# largest, (256, 28, 16, 8), is prod_axis over the FRI openings) and lane
+# counts off the 128-thread blocks; the constants of mul_const.
+PRODUCT_SHAPES = [(256,), (256, 28), (256, 80), (256, 4, 12), (256, 28, 16),
+                  (256, 28, 16, 8), (1,), (31,), (33,), (255,), (257,)]
+MUL_CONSTS = [0, 1, 7, gl.DTH_ROOT]
+SCAN_LANES = [STEP_BATCH, 1, 31, 33, 255, 257]
 GRAPH_LAUNCHES = 20
 # The refed step batch: the corrupted lane moved.
 MOVED_LANE = 200
@@ -528,6 +570,187 @@ def time_chain_kernels(dev, rng, rate, latency_s):
     return out
 
 
+def gl_values(shape, rng, dev):
+    """Random GL values of ``shape``; the first elements take GL_EDGE."""
+    return qe_values(shape, rng, dev)[0]
+
+
+@contextlib.contextmanager
+def plain_products():
+    """Every Goldilocks and QE product and the interpolation scan take their
+    plain versions on the card too: for the plain versions' times only."""
+    saved = gl.mul_kernels
+    gl.mul_kernels = lambda t: None
+    try:
+        yield
+    finally:
+        gl.mul_kernels = saved
+
+
+def on_cpu(x):
+    return torch.utils._pytree.tree_map(lambda t: t.cpu(), x)
+
+
+def coset_gate(spec):
+    gate, = [g for g in spec.gates()
+             if isinstance(g, G.CosetInterpolationGate)]
+    return gate
+
+
+def scan_inputs(gate, lanes, rng, dev):
+    """The interpolation scan's arguments at ``lanes``: random EA state,
+    values and point (edge values first), the gate's own schedule."""
+    xs, ws, _, active = gate.schedule
+    C, deg = 1 + gate.num_intermediates, gate.degree
+
+    def ea(shape):
+        return (qe_values(shape, rng, dev), qe_values(shape, rng, dev))
+
+    return (ea((lanes, C)), ea((lanes, C)), ea((lanes, deg, C)),
+            ea((lanes, 1)), tuple(gl.device_table(t, dev) for t in xs),
+            tuple(gl.device_table(t, dev) for t in ws),
+            gl.device_table(active, dev))
+
+
+def check_product_kernels(dev, rng, specs):
+    """The product kernels bit-exact against their plain versions at every
+    shape of PRODUCT_SHAPES, on each broadcast pattern of the call sites,
+    strided views and an empty lead shape, for the constants MUL_CONSTS;
+    the interpolation scan on the gate of each spec ({fixture: spec}) at
+    SCAN_LANES against the
+    plain scan on CPU copies.  Returns each one's largest |kernel - plain|
+    (0)."""
+    err = {"gl_mul": 0, "gl_mul_const": 0, "qe_mul": 0,
+           "coset_interp_scan": 0}
+
+    def hold(name, got, want, what, launched, before):
+        torch.cuda.synchronize()
+        leaves = torch.utils._pytree.tree_leaves
+        for g, w in zip(leaves(got), leaves(want)):
+            g = g.to(w.device)
+            if g.shape != w.shape or not torch.equal(g, w):
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"at {what}")
+            if g.numel():
+                err[name] = max(err[name], int((g - w).abs().max()))
+        counter = getattr(km, name)
+        if counter.launches - before != launched:
+            raise AssertionError(f"{name} at {what}: "
+                                 f"{counter.launches - before} launches, "
+                                 f"expected {launched}")
+
+    def run(name, fn, want_fn, what, launched=1):
+        before = getattr(km, name).launches
+        hold(name, fn(), want_fn(), what, launched, before)
+
+    for shape in PRODUCT_SHAPES:
+        a, b = gl_values(shape, rng, dev), gl_values(shape, rng, dev)
+        run("gl_mul", lambda: gl.mul(a, b), lambda: gl.mul_plain(a, b),
+            f"{shape}")
+        for c in MUL_CONSTS:
+            run("gl_mul_const", lambda: gl.mul_const(a, c),
+                lambda: gl.mul_const_plain(a, c), f"{shape}, c = {c}",
+                int(c not in (0, 1)))
+        x, y, z = (qe_values(shape, rng, dev) for _ in range(3))
+        run("qe_mul", lambda: qe.mul(x, y), lambda: qe.mul_plain(x, y),
+            f"{shape}")
+        run("qe_mul", lambda: qe.mul_add(x, y, z),
+            lambda: qe.mul_add_plain(x, y, z), f"{shape}, a b + c")
+    wires = qe_values((STEP_BATCH, 135), rng, dev)
+    pairs = qe_values((STEP_BATCH, 28, 16), rng, dev)
+    patterns = [
+        ("(B, 1) x (B, n)", qe_values((STEP_BATCH, 1), rng, dev),
+         qe_values((STEP_BATCH, 80), rng, dev)),
+        ("(n,) x (B, n)", qe_values((80,), rng, dev),
+         qe_values((STEP_BATCH, 80), rng, dev)),
+        ("(B, k, 1) x (B, k, n)", qe_values((STEP_BATCH, 28, 1), rng, dev),
+         qe_values((STEP_BATCH, 28, 16), rng, dev)),
+        ("() x (B, n)", qe_values((), rng, dev),
+         qe_values((STEP_BATCH, 80), rng, dev)),
+        ("wire columns", qe.index(wires, (Ellipsis, 3)),
+         qe.index(wires, (Ellipsis, 100))),
+        ("wire slices", qe.index(wires, (Ellipsis, slice(1, 81, 4))),
+         qe.index(wires, (Ellipsis, slice(2, 82, 4)))),
+        ("even x odd columns", qe.index(pairs, (Ellipsis, slice(0, None, 2))),
+         qe.index(pairs, (Ellipsis, slice(1, None, 2)))),
+        ("transposed", strided(qe_values((STEP_BATCH, 80), rng, dev)),
+         qe_values((STEP_BATCH, 80), rng, dev)),
+        ("empty (B, 0)", qe_values((STEP_BATCH, 0), rng, dev),
+         qe_values((STEP_BATCH, 0), rng, dev)),
+    ]
+    for what, x, y in patterns:
+        lead = tuple(torch.broadcast_shapes(x[0][0].shape, y[0][0].shape))
+        z = qe_values(lead, rng, dev)
+        n = int(math.prod(lead) > 0)
+        run("gl_mul", lambda: gl.mul(x[0], y[1]),
+            lambda: gl.mul_plain(x[0], y[1]), what, n)
+        run("gl_mul_const", lambda: gl.mul_const(x[1], gl.DTH_ROOT),
+            lambda: gl.mul_const_plain(x[1], gl.DTH_ROOT), what, n)
+        run("qe_mul", lambda: qe.mul(x, y), lambda: qe.mul_plain(x, y),
+            what, n)
+        run("qe_mul", lambda: qe.mul_add(x, y, z),
+            lambda: qe.mul_add_plain(x, y, z), f"{what}, a b + c", n)
+    for fixture, spec in specs.items():
+        gate = coset_gate(spec)
+        for lanes in SCAN_LANES:
+            args = scan_inputs(gate, lanes, rng, dev)
+            run("coset_interp_scan", lambda: G.coset_interp_scan(*args),
+                lambda: G.coset_interp_scan_plain(*on_cpu(args)),
+                f"{fixture}'s gate, {lanes} lanes")
+    return err
+
+
+def time_product_kernels(dev, rng, rate, latency_s, spec):
+    """Each product kernel at its largest main-path shape and the scan on
+    ``spec``'s gate at B=STEP_BATCH: its time in a CUDA graph, its plain
+    version's in a graph and eagerly (every product plain), its bound and,
+    for the scan, the latency of its chain."""
+    B = STEP_BATCH
+    a, b = (gl_values((B, 28, 16), rng, dev) for _ in range(2))
+    c_arg = gl_values((B, 44), rng, dev)
+    pairs = qe_values((B, 28, 16, 16), rng, dev)
+    x, y = (qe.index(pairs, (Ellipsis, slice(k, None, 2))) for k in (0, 1))
+    n_gl, n_c, n_qe = B * 28 * 16, B * 44, B * 28 * 16 * 8
+    gate = coset_gate(spec)
+    args = scan_inputs(gate, B, rng, dev)
+    C, deg = 1 + gate.num_intermediates, gate.degree
+    steps = int(gate.schedule[3].sum())  # the active (step, chunk) pairs
+    cases = {
+        # name: (kernel, plain, shape, IMADs, bytes); the bytes of each
+        # input read once and each output written once
+        "gl_mul": (lambda: gl.mul(a, b), lambda: gl.mul_plain(a, b),
+                   f"({B}, 28, 16) x ({B}, 28, 16)", n_gl * GL_MUL_IMADS,
+                   48 * n_gl),
+        "gl_mul_const": (lambda: gl.mul_const(c_arg, gl.DTH_ROOT),
+                         lambda: gl.mul_const_plain(c_arg, gl.DTH_ROOT),
+                         f"({B}, 44) x DTH_ROOT", n_c * GL_MUL_IMADS,
+                         32 * n_c),
+        "qe_mul": (lambda: qe.mul(x, y), lambda: qe.mul_plain(x, y),
+                   f"even x odd columns of ({B}, 28, 16, 16)",
+                   n_qe * QE_MUL_IMADS, 96 * n_qe),
+        # ev and pr in and out, the values, the point; xs, ws (16 B) and
+        # the mask (1 B) a (step, chunk)
+        "coset_interp_scan": (
+            lambda: G.coset_interp_scan(*args),
+            lambda: G.coset_interp_scan_plain(*args),
+            f"{B} lanes x {C} chunks, {deg} steps ({steps} active)",
+            B * steps * SCAN_STEP_IMADS,
+            64 * B * (4 * C + deg * C + 1) + 33 * deg * C),
+    }
+    out = {}
+    for name, (kern, plain, shape, imads, nbytes) in cases.items():
+        ms, by = bound(imads / rate * 1e3, nbytes)
+        with plain_products():
+            plain_ms = graph_ms(plain, 2)
+            plain_eager_ms = cuda_ms(plain, 2)
+        out[name] = {"shape": shape, "ms": graph_ms(kern),
+                     "plain_ms": plain_ms, "plain_eager_ms": plain_eager_ms,
+                     "bound_ms": ms, "bound_by": by}
+    out["coset_interp_scan"]["scan_latency_ms"] = (
+        deg * SCAN_STEP_DEPTH * latency_s * 1e3)
+    return out
+
+
 def ptxas_report():
     """Per kernel: registers, shared memory and spills, from ``ptxas -v``."""
     keep = ("Compiling entry function", "registers", "spill")
@@ -551,7 +774,8 @@ def per_verify(fixture, impl):
     used, unused = (("poseidon_bn254_cios", "poseidon_bn254") if impl == "cios"
                     else ("poseidon_bn254", "poseidon_bn254_cios"))
     return {used: bn, unused: 0, "poseidon_gl_transcript": 1,
-            "poseidon_gl_pi_hash": PI_HASH_LAUNCHES[fixture], **CHAIN_LAUNCHES}
+            "poseidon_gl_pi_hash": PI_HASH_LAUNCHES[fixture], **CHAIN_LAUNCHES,
+            **PRODUCT_LAUNCHES[fixture]}
 
 
 def times(k, *counts):
@@ -609,7 +833,10 @@ def profile_batch(impl, fn):
              "poseidon_bn254_cios_lane": "poseidon_bn254_cios_kernel_lane",
              "poseidon_gl_transcript": "transcript_kernel",
              "qe_horner": "qe_horner_kernel", "qe_powers": "qe_powers_kernel",
-             "qe_inv": "qe_inv_kernel"}
+             "qe_inv": "qe_inv_kernel", "gl_mul": "gl_mul_kernel",
+             "gl_mul_const": "gl_mul_const_kernel",
+             "qe_mul": "qe_mul_kernel",
+             "coset_interp_scan": "coset_interp_scan_kernel"}
     torch.cuda.synchronize()
     with pb.use_impl(impl), profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
@@ -725,7 +952,8 @@ def compiled_checks(impl, dev, card, spec_step, batch_step, expected,
           f"{[round(w, 4) for w in graph_only]} (median "
           f"{np.median(graph_only):.4f} s) [{card}]")
     print(f"{impl}: one replay under torch.profiler: wall {wall:.4f} s, "
-          f"{n_dev} device events (with the plain chains: "
+          f"{n_dev} device events (with the plain products: "
+          f"{PLAIN_PRODUCTS_REPLAY_EVENTS}; with the plain chains too: "
           f"{PLAIN_CHAINS_REPLAY_EVENTS}), device busy {busy:.4f} s "
           f"({busy / wall:.4f} of the wall); {kern} [{card}]")
     return per_kernel, {"wall_s": wall, "device_events": n_dev,
@@ -1016,6 +1244,14 @@ def main():
           f"{len(INV_CASES)} shapes, strided input, and n = {PI_HASH_N} at "
           f"B = 1 and {STEP_BATCH}")
     chain_t = time_chain_kernels(dev, rng, rate, latency_s)
+    prod_err = check_product_kernels(
+        dev, rng, {"step": spec_step, "decode_block": spec_db_only})
+    print(f"Goldilocks and QE products: bit-exact at {PRODUCT_SHAPES}, on "
+          f"the call sites' broadcast patterns, strided views and an empty "
+          f"lead shape, c = {MUL_CONSTS}; the interpolation scan on both "
+          f"fixtures' gates at {SCAN_LANES} lanes against the plain scan on "
+          f"CPU copies")
+    chain_t.update(time_product_kernels(dev, rng, rate, latency_s, spec_step))
     for name, t in chain_t.items():
         print(f"{name} at {t['shape']}: kernel {t['ms']:.5f} ms, plain "
               f"{t['plain_ms']:.4f} ms in a graph and {t['plain_eager_ms']:.2f}"
@@ -1208,11 +1444,29 @@ def main():
             "launches_in_one_replay": replay_kernels["mxu"][name][0],
             "device_s_in_one_replay": replay_kernels["mxu"][name][1],
             "launches_on_parallel_paths": on_parallel_paths(name)})
+    for name, replaces, source in (
+            ("gl_mul", "plonky2_tpu/fields/goldilocks.py:293",
+             "plonky2_tpu_torch/csrc/goldilocks_mul.cu"),
+            ("gl_mul_const", "plonky2_tpu/fields/goldilocks.py:297",
+             "plonky2_tpu_torch/csrc/goldilocks_mul.cu"),
+            ("qe_mul", "plonky2_tpu/fields/goldilocks_ext.py:59",
+             "plonky2_tpu_torch/csrc/goldilocks_mul.cu"),
+            ("coset_interp_scan", "plonky2_tpu/gates/gates.py:293",
+             "plonky2_tpu_torch/csrc/goldilocks_mul.cu")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": prod_err[name], **chain_t[name],
+            "library_ms": NO_LIBRARY,
+            "launches_in_one_replay": replay_kernels["mxu"][name][0],
+            "device_s_in_one_replay": replay_kernels["mxu"][name][1],
+            "launches_on_parallel_paths": on_parallel_paths(name)})
     print(f"step B={STEP_BATCH} replay, graph alone (median of "
           f"{REPLAYS}): mxu {replay['mxu']['graph_median_s']:.4f} s, cios "
           f"{replay['cios']['graph_median_s']:.4f} s; device events in one "
           f"profiled replay: mxu {replay['mxu']['device_events']}, cios "
-          f"{replay['cios']['device_events']} (with the plain chains: "
+          f"{replay['cios']['device_events']} (with the plain products: "
+          f"{PLAIN_PRODUCTS_REPLAY_EVENTS}; with the plain chains too: "
           f"{PLAIN_CHAINS_REPLAY_EVENTS}) [{card}]")
     print(f"kernel bounds at the timed shapes: BN254 {lanes[-1]} lanes "
           f"{bn_bound:.4f} ms, {lanes[0]} lanes {bn_bound_small:.4f} ms "

@@ -1,7 +1,8 @@
 // Goldilocks field arithmetic (p = 2^64 - 2^32 + 1) on one u64 a value, and
-// the quadratic extension F_p[X]/(X^2 - 7) over it, for the transcript kernel
-// (poseidon_gl_transcript.cu) and the extension-field chains
-// (goldilocks_ext.cu).
+// the quadratic extension F_p[X]/(X^2 - 7) over it and the extension algebra
+// over that (Y^2 - 7), for the transcript kernel (poseidon_gl_transcript.cu),
+// the extension-field chains (goldilocks_ext.cu) and the products and the
+// interpolation scan (goldilocks_mul.cu).
 //
 // Every function takes canonical operands (< p) and returns a canonical
 // value.  Field arithmetic is exact, so a kernel built from these is
@@ -93,6 +94,11 @@ __device__ __forceinline__ Qe qe_mul_w(Qe a, Qe b, u64 b1w) {
             gl_add(gl_mul(a.c0, b.c1), gl_mul(a.c1, b.c0))};
 }
 
+// a b = (a0 b0 + W a1 b1) + (a0 b1 + a1 b0) X
+__device__ __forceinline__ Qe qe_mul(Qe a, Qe b) {
+  return qe_mul_w(a, b, gl_mul(b.c1, W));
+}
+
 // a^-1 = conj(a) / N(a), conj(a) = (a0, DTH_ROOT a1), N(a) = a0^2 + W a1
 // conj1, a base-field value; 0 for 0 (fields/goldilocks_ext.py inv).
 __device__ __forceinline__ Qe qe_inv(Qe a) {
@@ -100,6 +106,23 @@ __device__ __forceinline__ Qe qe_inv(Qe a) {
   const u64 norm = gl_add(gl_mul(a.c0, a.c0), gl_mul(gl_mul(a.c1, conj1), W));
   const u64 norm_inv = gl_inv(norm);
   return Qe{gl_mul(a.c0, norm_inv), gl_mul(conj1, norm_inv)};
+}
+
+// An extension-algebra value a + b Y over the quadratic extension, Y^2 = W
+// (fields/goldilocks_ext.py ea_*).
+struct Ea {
+  Qe a, b;
+};
+
+__device__ __forceinline__ Ea ea_add(Ea x, Ea y) {
+  return Ea{qe_add(x.a, y.a), qe_add(x.b, y.b)};
+}
+
+// (x0 + x1 Y)(y0 + y1 Y) = (x0 y0 + W x1 y1) + (x0 y1 + x1 y0) Y
+__device__ __forceinline__ Ea ea_mul(Ea x, Ea y) {
+  const Qe t = qe_mul(x.b, y.b);
+  return Ea{qe_add(qe_mul(x.a, y.a), Qe{gl_mul(t.c0, W), gl_mul(t.c1, W)}),
+            qe_add(qe_mul(x.a, y.b), qe_mul(x.b, y.a))};
 }
 
 }  // namespace

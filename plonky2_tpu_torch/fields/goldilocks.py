@@ -260,11 +260,38 @@ def reduce_digits(digits):
 # Multiplication and friends
 # ---------------------------------------------------------------------------
 
+def mul_kernels(t):
+    """The product kernels' module (``kernels/goldilocks_mul.py``) for a
+    tensor on a GPU, None for a CPU tensor."""
+    if t.device.type == "cpu":
+        return None
+    from ..kernels import goldilocks_mul
+    return goldilocks_mul
+
+
 def mul(a, b):
+    """a b: one CUDA kernel launch on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    k = mul_kernels(a[0])
+    return mul_plain(a, b) if k is None else k.gl_mul(a, b)
+
+
+def mul_plain(a, b):
     return reduce_digits(mul_digits(a, b))
 
 
 def mul_const(a, c):
+    """a c for a python-int constant c: zeros for c = 0 and ``a`` itself for
+    c = 1 on any device, with no launch; otherwise one CUDA kernel launch on
+    a CUDA tensor, the plain version on a CPU tensor."""
+    c = int(c) % P
+    k = mul_kernels(a[0])
+    if k is None or c in (0, 1):
+        return mul_const_plain(a, c)
+    return k.gl_mul_const(a, c)
+
+
+def mul_const_plain(a, c):
     c = int(c) % P
     if c == 0:
         return zeros_like(a)
@@ -281,7 +308,9 @@ def square(a):
     return mul(a, a)
 
 
-def pow_const(a, e):
+def pow_const(a, e, mul_fn=None):
+    """a^e by square and multiply, through ``mul_fn`` (default ``mul``)."""
+    mul_fn = mul_fn or mul
     e = int(e)
     if e == 0:
         return ones_like(a)
@@ -289,16 +318,21 @@ def pow_const(a, e):
     base = a
     while e:
         if e & 1:
-            result = base if result is None else mul(result, base)
+            result = base if result is None else mul_fn(result, base)
         e >>= 1
         if e:
-            base = mul(base, base)
+            base = mul_fn(base, base)
     return result
 
 
 def inv(a):
     """a^(p-2); 0 for input 0 (the reference's semantics)."""
     return pow_const(a, P - 2)
+
+
+def inv_plain(a):
+    """``inv`` through ``mul_plain`` on any device."""
+    return pow_const(a, P - 2, mul_plain)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,11 @@ The sequential chains that the JAX package writes as ``jax.lax.scan``
 (``horner``, ``powers``, and ``inv`` through the base field's inversion)
 run on the card as the CUDA kernels of ``kernels/goldilocks_ext.py``; their
 plain versions (``horner_plain``, ``powers_plain``, ``inv_plain``) are
-Python loops of torch ops, taken only for CPU tensors.
+Python loops of torch ops, taken only for CPU tensors.  The product ``mul``
+and ``mul_add`` launch the kernel of ``kernels/goldilocks_mul.py`` on a
+CUDA tensor (so ``square``, ``div``, ``prod_axis`` and the extension
+algebra's products do too); the chains' plain versions call ``mul_plain``
+and ``mul_add_plain``, so they stay plain torch on any device.
 """
 
 from __future__ import annotations
@@ -75,12 +79,26 @@ def _mul_digits(a, b):
 
 
 def mul(a, b):
+    """a b: one CUDA kernel launch on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    k = gl.mul_kernels(a[0][0])
+    return mul_plain(a, b) if k is None else k.qe_mul(a, b)
+
+
+def mul_plain(a, b):
     """(a0 + a1 X)(b0 + b1 X) = (a0 b0 + 7 a1 b1) + (a0 b1 + a1 b0) X."""
     d0, d1 = _mul_digits(a, b)
     return (gl.reduce_digits(d0), gl.reduce_digits(d1))
 
 
 def mul_add(a, b, c):
+    """a b + c: one CUDA kernel launch on a CUDA tensor, the plain version
+    on a CPU tensor."""
+    k = gl.mul_kernels(a[0][0])
+    return mul_add_plain(a, b, c) if k is None else k.qe_mul(a, b, c)
+
+
+def mul_add_plain(a, b, c):
     d0, d1 = _mul_digits(a, b)
     return (gl.reduce_digits(gl.add_to_digits(d0, c[0])),
             gl.reduce_digits(gl.add_to_digits(d1, c[1])))
@@ -88,10 +106,6 @@ def mul_add(a, b, c):
 
 def square(a):
     return mul(a, a)
-
-
-def scalar_mul(a, s):
-    return (gl.mul(a[0], s), gl.mul(a[1], s))
 
 
 def scalar_mul_const(a, c):
@@ -115,11 +129,12 @@ def inv(a):
 
 def inv_plain(a):
     """a^-1 = conj(a) / N(a), conj(a) = (a0, DTH_ROOT * a1); 0 for 0."""
-    conj = (a[0], gl.mul_const(a[1], gl.DTH_ROOT))
+    conj = (a[0], gl.mul_const_plain(a[1], gl.DTH_ROOT))
     norm = gl.reduce_digits(
         gl.add_digits(gl.mul_digits(a[0], conj[0]),
                       gl.scale_digits(gl.mul_digits(a[1], conj[1]), gl.W)))
-    return scalar_mul(conj, gl.inv(norm))
+    norm_inv = gl.inv_plain(norm)
+    return (gl.mul_plain(conj[0], norm_inv), gl.mul_plain(conj[1], norm_inv))
 
 
 def div(a, b):
@@ -177,7 +192,7 @@ def horner_plain(terms, x):
     lead = torch.broadcast_shapes(terms[0][0].shape[:-1], x[0][0].shape)
     acc = zeros(lead, device_of(terms))
     for i in reversed(range(n)):
-        acc = mul_add(acc, x, index(terms, (Ellipsis, i)))
+        acc = mul_add_plain(acc, x, index(terms, (Ellipsis, i)))
     return acc
 
 
@@ -192,7 +207,7 @@ def powers_plain(x, n):
     """[x^0, .., x^(n-1)] as a QE array (..., n)."""
     out = [ones_like(x)]
     for _ in range(n - 1):
-        out.append(mul(out[-1], x))
+        out.append(mul_plain(out[-1], x))
     return stack(out[:n], axis=-1)
 
 

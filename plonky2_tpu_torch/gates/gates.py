@@ -11,9 +11,11 @@ Counterpart of ``plonky2_tpu/gates/gates.py``.  Each gate is a function
 Every per-op / per-copy / per-round repetition is a stacked tensor axis.
 Sequences whose intermediates the proof pins to witness wires (Poseidon
 S-box inputs, reducing accumulators, exponentiation intermediates) are not
-sequential for the verifier; the coset-interpolation chunk steps are a short
-Python loop.  Gate instances are parsed from plonky2's Rust Debug-string
-gate IDs by the registry at the end of this module.
+sequential for the verifier; the coset-interpolation chunk steps are one
+CUDA kernel launch on the card (``coset_interp_scan``) and a short Python
+loop on the CPU (``coset_interp_scan_plain``).  Gate instances are parsed
+from plonky2's Rust Debug-string gate IDs by the registry at the end of
+this module.
 """
 
 from __future__ import annotations
@@ -167,11 +169,47 @@ class ConstantGate:
                       qe.index(wires, (Ellipsis, slice(0, n))))
 
 
+def coset_interp_scan(ev, pr, val, pt, xs, ws, active):
+    """The interpolation gate's chunk steps (``coset_interp_scan_plain``):
+    one CUDA kernel launch on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    k = gl.mul_kernels(ev[0][0][0])
+    if k is None:
+        return coset_interp_scan_plain(ev, pr, val, pt, xs, ws, active)
+    return k.coset_interp_scan(ev, pr, val, pt, xs, ws, active)
+
+
+def coset_interp_scan_plain(ev, pr, val, pt, xs, ws, active):
+    """The deg steps of every chunk at once (JAX: the ``jax.lax.scan`` of
+    ``plonky2_tpu/gates/gates.py`` CosetInterpolationGate.eval).
+
+    ev, pr: EA (B, C), the chunks' running evaluation and product; val: EA
+    (B, deg, C), the values taken at each step; pt: EA (B, 1), the shifted
+    evaluation point; xs, ws: GL (deg, C), each step's domain point and
+    barycentric weight; active: bool (deg, C).  Step j, where active:
+    term = pt - xs[j] (in the base coordinate of the first QE),
+    ev = ev term + val[:, j] ws[j] pr, pr = pr term.  Returns (ev, pr)."""
+    for j in range(xs[0].shape[0]):
+        x = gl.index(xs, j)
+        wgt = gl.index(ws, j)
+        vj = (qe.index(val[0], (Ellipsis, j, slice(None))),
+              qe.index(val[1], (Ellipsis, j, slice(None))))
+        term = ((gl.sub(pt[0][0], x), pt[0][1]), pt[1])
+        wv = ((gl.mul(vj[0][0], wgt), gl.mul(vj[0][1], wgt)),
+              (gl.mul(vj[1][0], wgt), gl.mul(vj[1][1], wgt)))
+        new_ev = qe.ea_add(qe.ea_mul(ev, term), qe.ea_mul(wv, pr))
+        new_pr = qe.ea_mul(pr, term)
+        m = active[j][None, :]
+        ev = (qe.select(m, new_ev[0], ev[0]), qe.select(m, new_ev[1], ev[1]))
+        pr = (qe.select(m, new_pr[0], pr[0]), qe.select(m, new_pr[1], pr[1]))
+    return ev, pr
+
+
 class CosetInterpolationGate:
     """Chunked barycentric interpolation over a coset of H.  Chunks are
     independent for the verifier (each chunk's accumulator init is pinned to
     intermediate wires), so they stack into an axis; the <= degree steps
-    within a chunk run as a loop."""
+    within a chunk run as ``coset_interp_scan``."""
 
     def __init__(self, subgroup_bits, degree, barycentric_weights):
         self.subgroup_bits = subgroup_bits
@@ -186,9 +224,35 @@ class CosetInterpolationGate:
     def num_intermediates(self):
         return (self.num_points - 2) // (self.degree - 1)
 
-    def eval(self, consts, wires, pi_hash):
+    @functools.cached_property
+    def schedule(self):
+        """The static per-(step, chunk) schedule, numpy (deg, C): domain
+        points and weights as GL (lo, hi) pairs, value indices, and the
+        active mask."""
         n = self.num_points
         deg = self.degree
+        ni = self.num_intermediates
+        C = 1 + ni
+        domain = gl.two_adic_subgroup(self.subgroup_bits)
+        bounds = [(0, deg)]
+        for i in range(ni):
+            s = 1 + (deg - 1) * (i + 1)
+            bounds.append((s, min(s + deg - 1, n)))
+        xs = np.zeros((deg, C), dtype=object)
+        ws = np.zeros((deg, C), dtype=object)
+        vidx = np.zeros((deg, C), dtype=np.int64)
+        active = np.zeros((deg, C), dtype=bool)
+        for c, (s, e) in enumerate(bounds):
+            for j in range(e - s):
+                xs[j, c] = domain[s + j]
+                ws[j, c] = self.weights[s + j] % gl.P
+                vidx[j, c] = s + j
+                active[j, c] = True
+        return (gl.const_array(xs.tolist()), gl.const_array(ws.tolist()),
+                vidx, active)
+
+    def eval(self, consts, wires, pi_hash):
+        n = self.num_points
         ni = self.num_intermediates
         C = 1 + ni
         start_values = 1
@@ -208,23 +272,7 @@ class CosetInterpolationGate:
         c_shift = qe.ea_add((qe.mul(neg_shift, shifted_pt[0]),
                              qe.mul(neg_shift, shifted_pt[1])), eval_point)
 
-        # static per-(chunk, step) schedule
-        domain = gl.two_adic_subgroup(self.subgroup_bits)
-        bounds = [(0, deg)]
-        for i in range(ni):
-            s = 1 + (deg - 1) * (i + 1)
-            bounds.append((s, min(s + deg - 1, n)))
-        xs = np.zeros((deg, C), dtype=object)
-        ws = np.zeros((deg, C), dtype=object)
-        vidx = np.zeros((deg, C), dtype=np.int64)
-        active = np.zeros((deg, C), dtype=bool)
-        for c, (s, e) in enumerate(bounds):
-            for j in range(e - s):
-                xs[j, c] = domain[s + j]
-                ws[j, c] = self.weights[s + j] % gl.P
-                vidx[j, c] = s + j
-                active[j, c] = True
-
+        xs_c, ws_c, vidx, active = self.schedule
         v0 = _ea_cols(wires, start_values, n)                # ea (B, n)
         vidx_t = gl.device_table(vidx, like.device)
         val = (qe.index(v0[0], (Ellipsis, vidx_t)),
@@ -238,20 +286,9 @@ class CosetInterpolationGate:
         pr = (qe.concat([o1, inter_prod[0]]), qe.concat([z1, inter_prod[1]]))
 
         pt = (_col(shifted_pt[0]), _col(shifted_pt[1]))      # ea (B, 1)
-        act = gl.device_table(active, like.device)
-        for j in range(deg):
-            x = gl.const_like(gl.const_array(xs[j].tolist()), like)
-            wgt = gl.const_like(gl.const_array(ws[j].tolist()), like)
-            vj = (qe.index(val[0], (Ellipsis, j, slice(None))),
-                  qe.index(val[1], (Ellipsis, j, slice(None))))
-            term = ((gl.sub(pt[0][0], x), pt[0][1]), pt[1])
-            wv = ((gl.mul(vj[0][0], wgt), gl.mul(vj[0][1], wgt)),
-                  (gl.mul(vj[1][0], wgt), gl.mul(vj[1][1], wgt)))
-            new_ev = qe.ea_add(qe.ea_mul(ev, term), qe.ea_mul(wv, pr))
-            new_pr = qe.ea_mul(pr, term)
-            m = act[j][None, :]
-            ev = (qe.select(m, new_ev[0], ev[0]), qe.select(m, new_ev[1], ev[1]))
-            pr = (qe.select(m, new_pr[0], pr[0]), qe.select(m, new_pr[1], pr[1]))
+        ev, pr = coset_interp_scan(ev, pr, val, pt, gl.const_like(xs_c, like),
+                                   gl.const_like(ws_c, like),
+                                   gl.device_table(active, like.device))
 
         out = [qe.stack([c_shift[0], c_shift[1]], axis=-1)]
         if ni:

@@ -60,11 +60,12 @@ def consts():
 
 
 def _sbox(x):
-    """x^7."""
-    x2 = gl.mul(x, x)
-    x3 = gl.mul(x, x2)
-    x6 = gl.mul(x3, x3)
-    return gl.mul(x, x6)
+    """x^7 (plain torch on any device: the card runs this permutation in
+    the transcript kernel)."""
+    x2 = gl.mul_plain(x, x)
+    x3 = gl.mul_plain(x, x2)
+    x6 = gl.mul_plain(x3, x3)
+    return gl.mul_plain(x, x6)
 
 
 def _mds_layer(state):

@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U64 = ctypes.c_uint64
+_DESC = ctypes.POINTER(ctypes.c_longlong)  # a host array of int64 words
 _SIGNATURES = {
     "p2t_poseidon_bn254_n_const": [],
     "p2t_poseidon_bn254_permute": [_P, _P, _P, _P, _I, _P],
@@ -43,6 +44,10 @@ _SIGNATURES = {
     "p2t_qe_horner": [_P] * 12 + [_I, _I, _P],
     "p2t_qe_powers": [_P] * 8 + [_I, _I, _P],
     "p2t_qe_inv": [_P] * 8 + [_I, _P],
+    "p2t_gl_mul": [_DESC, _P, _P],
+    "p2t_gl_mul_const": [_DESC, _U64, _P, _P],
+    "p2t_qe_mul": [_DESC, _I, _P, _P],
+    "p2t_coset_interp_scan": [_DESC, _P, _P],
 }
 
 

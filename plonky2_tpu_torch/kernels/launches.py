@@ -10,6 +10,7 @@ nothing here (``torch.profiler`` sees those launches).
 from __future__ import annotations
 
 from . import goldilocks_ext as kq
+from . import goldilocks_mul as km
 from . import poseidon_bn254 as kb
 from . import poseidon_bn254_cios as kc
 from . import poseidon_gl_transcript as kt
@@ -23,7 +24,11 @@ def counters():
             "poseidon_gl_pi_hash": kt.hash_no_pad_kernel,
             "qe_horner": kq.horner,
             "qe_powers": kq.powers,
-            "qe_inv": kq.inv}
+            "qe_inv": kq.inv,
+            "gl_mul": km.gl_mul,
+            "gl_mul_const": km.gl_mul_const,
+            "qe_mul": km.qe_mul,
+            "coset_interp_scan": km.coset_interp_scan}
 
 
 def reset():

@@ -277,3 +277,158 @@ def test_pi_hash_sponge_matches_plain(dev, n, batch):
     torch.cuda.synchronize()
     assert got[0].shape == (batch, 4)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# -- the PLONK stage's products and the interpolation scan ------------------
+
+from plonky2_tpu_torch.gates import gates as G  # noqa: E402
+from plonky2_tpu_torch.kernels import goldilocks_mul as km  # noqa: E402
+
+# The main path's product shapes at B=256 (the largest: prod_axis's
+# (256, 28, 16, 8) over the FRI openings, the (256, 28, 16) base products),
+# and lane counts off the 128-thread block.
+PRODUCT_SHAPES = [(256,), (256, 28), (256, 80), (256, 4, 12), (256, 28, 16),
+                  (256, 28, 16, 8), (1,), (31,), (33,), (255,), (257,)]
+
+
+def _gl(vals, dev):
+    return tuple(t.reshape(np.shape(vals)) for t in gl.split_u64(vals, dev))
+
+
+def _gl_vals(shape, seed):
+    return _qe_vals(shape, seed)[0]
+
+
+def _counted(counter, fn):
+    """fn() and the launches it added to ``counter``'s wrapper."""
+    before = counter.launches
+    out = fn()
+    return out, counter.launches - before
+
+
+@pytest.mark.parametrize("shape", PRODUCT_SHAPES)
+def test_gl_mul_kernel_matches_plain(dev, shape):
+    a = _gl(_gl_vals(shape, seed=11), dev)
+    b = _gl(_gl_vals(shape, seed=12), dev)
+    got, n = _counted(km.gl_mul, lambda: gl.mul(a, b))
+    want = gl.mul_plain(a, b)
+    torch.cuda.synchronize()
+    assert n == 1 and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("shape", PRODUCT_SHAPES)
+def test_qe_mul_and_mul_add_kernels_match_plain(dev, shape):
+    a, b, c = (_qe(_qe_vals(shape, seed=s), dev) for s in (13, 14, 15))
+    got, n = _counted(km.qe_mul, lambda: qe.mul(a, b))
+    got_add, n_add = _counted(km.qe_mul, lambda: qe.mul_add(a, b, c))
+    want, want_add = qe.mul_plain(a, b), qe.mul_add_plain(a, b, c)
+    torch.cuda.synchronize()
+    assert (n, n_add) == (1, 1)
+    assert _qe_equal(got, want) and _qe_equal(got_add, want_add)
+
+
+@pytest.mark.parametrize("c", [0, 1, 7, gl.DTH_ROOT, gl.P - 1])
+@pytest.mark.parametrize("shape", [(256, 44), (257,)])
+def test_gl_mul_const_kernel_matches_plain(dev, c, shape):
+    a = _gl(_gl_vals(shape, seed=16), dev)
+    got, n = _counted(km.gl_mul_const, lambda: gl.mul_const(a, c))
+    want = gl.mul_const_plain(a, c)
+    torch.cuda.synchronize()
+    assert n == (c not in (0, 1))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if c == 1:
+        assert got is a
+
+
+def _views(dev):
+    """(name, a, b) QE operands of each broadcast pattern of the call sites
+    at B=256, views as the call sites make them."""
+    def v(shape, seed):
+        return _qe(_qe_vals(shape, seed), dev)
+
+    wires = v((256, 135), 20)
+    pairs = v((256, 28, 16), 21)
+    return [
+        ("column x row", v((256, 1), 22), v((256, 80), 23)),
+        ("table x rows", v((80,), 24), v((256, 80), 25)),
+        ("(B, k, 1) x (B, k, n)", v((256, 28, 1), 26), v((256, 28, 16), 27)),
+        ("scalar x rows", v((), 28), v((256, 80), 29)),
+        ("wire columns", qe.index(wires, (Ellipsis, 3)),
+         qe.index(wires, (Ellipsis, 100))),
+        ("wire slices", qe.index(wires, (Ellipsis, slice(1, 81, 4))),
+         qe.index(wires, (Ellipsis, slice(2, 82, 4)))),
+        ("even x odd columns", qe.index(pairs, (Ellipsis, slice(0, None, 2))),
+         qe.index(pairs, (Ellipsis, slice(1, None, 2)))),
+        ("transposed", _strided(v((256, 80), 30)), v((256, 80), 31)),
+        ("empty", v((256, 0), 32), v((256, 0), 33)),
+    ]
+
+
+def test_product_kernels_read_broadcast_and_strided_operands(dev):
+    for name, a, b in _views(dev):
+        lead = torch.broadcast_shapes(a[0][0].shape, b[0][0].shape)
+        c = _qe(_qe_vals(tuple(lead), seed=34), dev)
+        launched = int(lead.numel() > 0)
+        got, n = _counted(km.qe_mul, lambda: qe.mul(a, b))
+        got_add, n_add = _counted(km.qe_mul, lambda: qe.mul_add(a, b, c))
+        got_gl, n_gl = _counted(km.gl_mul, lambda: gl.mul(a[0], b[1]))
+        torch.cuda.synchronize()
+        assert (n, n_add, n_gl) == (launched,) * 3, name
+        assert _qe_equal(got, qe.mul_plain(a, b)), name
+        assert _qe_equal(got_add, qe.mul_add_plain(a, b, c)), name
+        want_gl = gl.mul_plain(a[0], b[1])
+        assert all(g.shape == w.shape and torch.equal(g, w)
+                   for g, w in zip(got_gl, want_gl)), name
+
+
+def _cpu(x):
+    return torch.utils._pytree.tree_map(lambda t: t.cpu(), x)
+
+
+def _coset_gate(fixture):
+    spec = load_circuit_spec(f"testdata/{fixture}/common_circuit_data.json")
+    gate, = [g for g in spec.gates() if isinstance(g, G.CosetInterpolationGate)]
+    return gate
+
+
+@pytest.mark.parametrize("fixture", ["step", "decode_block"])
+@pytest.mark.parametrize("lanes", [256, 1, 31, 33, 255, 257])
+def test_coset_interp_scan_kernel_matches_plain(dev, fixture, lanes):
+    """On the card the plain scan's products would go through the product
+    kernels, so the kernel is held against ``coset_interp_scan_plain`` run
+    on CPU copies of the same inputs."""
+    gate = _coset_gate(fixture)
+    xs, ws, _, active = gate.schedule
+    C, deg = 1 + gate.num_intermediates, gate.degree
+
+    def ea(shape, seed):
+        return (_qe(_qe_vals(shape, seed), dev),
+                _qe(_qe_vals(shape, seed + 1), dev))
+
+    args = (ea((lanes, C), 40), ea((lanes, C), 42), ea((lanes, deg, C), 44),
+            ea((lanes, 1), 46),
+            tuple(torch.as_tensor(t, device=dev) for t in xs),
+            tuple(torch.as_tensor(t, device=dev) for t in ws),
+            torch.as_tensor(active, device=dev))
+    got, n = _counted(km.coset_interp_scan, lambda: G.coset_interp_scan(*args))
+    want = G.coset_interp_scan_plain(*_cpu(args))
+    torch.cuda.synchronize()
+    leaves = torch.utils._pytree.tree_leaves
+    assert n == 1
+    assert all(g.shape == w.shape and torch.equal(g.cpu(), w)
+               for g, w in zip(leaves(got), leaves(want)))
+
+
+@pytest.mark.parametrize("fixture", ["step", "decode_block"])
+def test_coset_gate_on_the_card_matches_the_cpu(dev, fixture):
+    """The whole gate, its products and scan on the card, against the gate
+    on CPU copies of the same wires (B=256)."""
+    gate = _coset_gate(fixture)
+    wires = _qe(_qe_vals((256, 135), seed=50), dev)
+    consts = _qe(_qe_vals((256, 2), seed=51), dev)
+    pih = gl.zeros((256, 4), dev)
+    got, n = _counted(km.coset_interp_scan,
+                      lambda: gate.eval(consts, wires, pih))
+    want = gate.eval(_cpu(consts), _cpu(wires), _cpu(pih))
+    torch.cuda.synchronize()
+    assert n == 1 and _qe_equal(_cpu(got), want)
