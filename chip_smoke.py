@@ -19,10 +19,13 @@
    quadratic-extension chain kernels (Horner, powers, inverse) and the
    public-input sponge (the transcript kernel over HashNoPad's blocks) are
    checked bit-exact at every shape the main path gives them (both
-   fixtures, B=256) and at lane counts off their 64-thread blocks, with
-   broadcast and strided inputs and the edge values, and each is timed at
-   its largest main-path shape through a CUDA graph of 20 launches beside
-   its plain version's replay and eager times; the PLONK stage's product
+   fixtures, B=256) and at lane counts off their blocks, with broadcast and
+   strided inputs, the edge values and x = 0 and 1, Horner and powers also
+   at n around their group widths (31 to 65), n = 1000 and every group
+   width; each is timed at its largest main-path shape through a CUDA graph
+   of 20 launches beside its plain version's replay and eager times, and
+   Horner and powers at each of their calls in a step verification, at the
+   group width the wrapper picks and at every other; the PLONK stage's product
    kernels (Goldilocks a b and a c, QE a b and a b + c) are checked
    bit-exact at the main path's shapes (B=256, the largest (256, 28, 16, 8))
    and at lane counts off their 128-thread blocks, on every broadcast
@@ -208,18 +211,43 @@ PLAIN_CHAINS_REPLAY_EVENTS = 367045
 PLAIN_PRODUCTS_REPLAY_EVENTS = 61926
 # The chain kernels' checked shapes: (terms, x) of every horner call at B=256
 # on step and decode_block (the final polynomial is 32 and 16 long, the FRI
-# batch 258 and 257), lane counts off the 64-thread blocks, n = 1, and terms
-# that broadcast against x; the inverses' and powers' main-path shapes and
-# the same lane counts.
+# batch 258 and 257), lane counts off the chains' blocks (whole warps, about
+# lanes x G / 132 threads), n = 1, terms that broadcast against x, n at and
+# around the group widths (31, 32, 33, 64, 65) and n = 1000; the powers'
+# main-path shapes and the same.  Every x of two or more lanes holds 0 in
+# its last lane and, from six lanes, 1 in lane 5 (qe_values).
 HORNER_CASES = [((256, 63), ()), ((256, 4, 4), ()), ((256, 145), (256,)),
                 ((256, 2, 8), (256, 1)), ((256, 258), (256,)),
                 ((256, 257), (256,)), ((256, 2), (256,)),
                 ((256, 1, 32), (256, 28)), ((256, 1, 16), (256, 28)),
                 ((1, 5), (1,)), ((31, 7), (31,)), ((33, 7), (33,)),
                 ((255, 9), (255,)), ((257, 9), (257,)), ((65, 1), (65,)),
-                ((1, 9), (40,))]
+                ((1, 9), (40,)), ((256, 31), (256,)), ((256, 32), (256,)),
+                ((256, 33), (256,)), ((256, 64), (256,)),
+                ((256, 65), (256,)), ((7, 1000), (7,)),
+                ((7169, 32), (7169,)), ((1023, 4), (1023,)),
+                ((257, 65), (257,))]
 POWERS_CASES = [(256, 258), (256, 257), (256, 2), (1, 5), (31, 5), (33, 5),
-                (255, 9), (257, 9), (256, 1)]
+                (255, 9), (257, 9), (256, 1), (256, 31), (256, 32),
+                (256, 33), (256, 64), (256, 65), (7, 1000), (7169, 32),
+                (257, 65)]
+# Every group width is checked at these (lanes, n), Horner and powers.
+GROUP_CASES = [(256, 258), (7168, 32), (33, 65)]
+# The chains' calls in one step verification at B=256: (kernel, terms shape
+# or lanes, x shape or n, calls): gates/gates.py:152 and :390,
+# plonk_checks/vanishing.py:89 (twice) and :96, fri/verify.py:147, :148 and
+# :249 (the final polynomial at 256 x 28 lanes); powers at fri/verify.py:193
+# and :208.
+CHAIN_CALLS = [("qe_horner", (256, 63), (), 1),
+               ("qe_horner", (256, 4, 4), (), 1),
+               ("qe_horner", (256, 145), (256,), 2),
+               ("qe_horner", (256, 2, 8), (256, 1), 1),
+               ("qe_horner", (256, 258), (256,), 1),
+               ("qe_horner", (256, 2), (256,), 1),
+               ("qe_horner", (256, 1, 32), (256, 28), 1),
+               ("qe_powers", (256,), 258, 1),
+               ("qe_powers", (256,), 2, 1)]
+GROUPS = [1, 2, 4, 8, 16, 32]
 INV_CASES = [(256,), (256, 28), (256, 28, 16), (1,), (31,), (33,), (255,),
              (257,)]
 PI_HASH_N = [0, 1, 7, 8, 9, 36]
@@ -476,8 +504,9 @@ def strided(a):
 def check_chain_kernels(dev, rng):
     """The QE Horner, powers and inverse kernels and the public-input sponge
     bit-exact against their plain versions at every case of HORNER_CASES,
-    POWERS_CASES, INV_CASES and PI_HASH_N (B = 1 and STEP_BATCH), and on
-    strided input; returns each one's largest |kernel - plain| (0)."""
+    POWERS_CASES, INV_CASES and PI_HASH_N (B = 1 and STEP_BATCH), on
+    strided input, and Horner and powers at every group width at each of
+    GROUP_CASES; returns each one's largest |kernel - plain| (0)."""
     err = {"qe_horner": 0, "qe_powers": 0, "qe_inv": 0,
            "poseidon_gl_pi_hash": 0}
 
@@ -491,20 +520,31 @@ def check_chain_kernels(dev, rng):
             if g.numel():
                 err[name] = max(err[name], int((g - w).abs().max()))
 
+    def x_values(shape):
+        return qe_values(shape, rng, dev, zero_lanes=int(math.prod(shape) > 1))
+
     for t_shape, x_shape in HORNER_CASES:
-        terms, x = qe_values(t_shape, rng, dev), qe_values(x_shape, rng, dev)
+        terms, x = qe_values(t_shape, rng, dev), x_values(x_shape)
         hold("qe_horner", kq.horner(terms, x), qe.horner_plain(terms, x),
              f"terms {t_shape}, x {x_shape}")
     terms, x = strided(qe_values((256, 145), rng, dev)), qe_values((256,), rng, dev)
     hold("qe_horner", kq.horner(terms, x), qe.horner_plain(terms, x),
          "strided terms (256, 145)")
     for lanes, n in POWERS_CASES:
-        x = qe_values((lanes,), rng, dev)
+        x = x_values((lanes,))
         hold("qe_powers", kq.powers(x, n), qe.powers_plain(x, n),
              f"{lanes} lanes, n = {n}")
     x = tuple(tuple(t.T for t in c) for c in qe_values((16, 16), rng, dev))
     hold("qe_powers", kq.powers(x, 6), qe.powers_plain(x, 6),
          "strided x (16, 16)")
+    for lanes, n in GROUP_CASES:
+        terms, x = qe_values((lanes, n), rng, dev), x_values((lanes,))
+        want_h, want_p = qe.horner_plain(terms, x), qe.powers_plain(x, n)
+        for g in GROUPS:
+            hold("qe_horner", kq.horner(terms, x, group=g), want_h,
+                 f"({lanes}, {n}), G = {g}")
+            hold("qe_powers", kq.powers(x, n, group=g), want_p,
+                 f"{lanes} lanes, n = {n}, G = {g}")
     for shape in INV_CASES:
         a = qe_values(shape, rng, dev, zero_lanes=1)
         got = kq.inv(a)
@@ -524,40 +564,73 @@ def check_chain_kernels(dev, rng):
     return err
 
 
+def chain_call(kernel, shape, arg, rng, dev):
+    """(kernel(group) -> launch, plain -> launch, lanes, n, IMADs, bytes) of
+    one call of CHAIN_CALLS: a Horner or powers step is a QE product by a
+    fixed x (W x1 made once a lane); each operand is read once, the output
+    written once."""
+    if kernel == "qe_horner":
+        terms, x = qe_values(shape, rng, dev), qe_values(arg, rng, dev)
+        n = shape[-1]
+        lanes = math.prod(torch.broadcast_shapes(shape[:-1], arg))
+        return (lambda g=None: (lambda: kq.horner(terms, x, group=g)),
+                lambda: qe.horner_plain(terms, x), lanes, n,
+                lanes * (n * QE_STEP_IMADS + 8),
+                32 * (math.prod(shape) + math.prod(arg) + lanes))
+    x, n = qe_values(shape, rng, dev), arg
+    lanes = math.prod(shape)
+    return (lambda g=None: (lambda: kq.powers(x, n, group=g)),
+            lambda: qe.powers_plain(x, n), lanes, n,
+            lanes * ((n - 1) * QE_STEP_IMADS + 8), 32 * lanes * (n + 1))
+
+
 def time_chain_kernels(dev, rng, rate, latency_s):
-    """Each chain kernel and the sponge at its largest shape on the main
-    path (step, B=STEP_BATCH): its time in a CUDA graph, its plain version's
-    in a graph and eagerly, its bound and the latency of its own dependent
-    chain."""
+    """Horner and powers at each of CHAIN_CALLS, the inverse and the sponge
+    at their largest shapes on the main path (step, B=STEP_BATCH): each
+    kernel's time in a CUDA graph at the group width its wrapper picks and
+    at every other width up to n, its bound, the latency of its old
+    one-thread chain (n x L) and of the split chain (chain_depth x L); the
+    plain version's time in a graph and eagerly at the largest shape; the
+    sum over one verification's calls."""
     B = STEP_BATCH
-    n0 = 258
-    terms, x = qe_values((B, n0), rng, dev), qe_values((B,), rng, dev)
+    out = {"qe_horner": {"at_main_path_shapes": []},
+           "qe_powers": {"at_main_path_shapes": []}}
+    for kernel, shape, arg, calls in CHAIN_CALLS:
+        launch, plain, lanes, n, imads, nbytes = chain_call(kernel, shape, arg,
+                                                            rng, dev)
+        group = kq.chain_group(lanes, n)
+        ms, by = bound(imads / rate * 1e3, nbytes)
+        row = {"shape": (f"terms {shape}, x {arg}" if kernel == "qe_horner"
+                         else f"x {shape}, n = {arg}"),
+               "lanes": lanes, "n": n, "calls": calls, "group": group,
+               "ms": graph_ms(launch()), "bound_ms": ms, "bound_by": by,
+               "group_ms": {g: graph_ms(launch(g)) for g in GROUPS
+                            if g <= max(n, 1)},
+               "scan_latency_ms": n * latency_s * 1e3,
+               "chain_depth": kq.chain_depth(n, group),
+               "split_latency_ms": kq.chain_depth(n, group) * latency_s * 1e3}
+        if shape == (B, 258) or arg == 258:  # the largest
+            row["plain_ms"] = graph_ms(plain, 2)
+            row["plain_eager_ms"] = cuda_ms(plain, 2)
+            out[kernel].update({k: v for k, v in row.items()
+                                if k != "group_ms"})
+        out[kernel]["at_main_path_shapes"].append(row)
+    for kernel in ("qe_horner", "qe_powers"):
+        out[kernel]["ms_one_verification"] = sum(
+            r["ms"] * r["calls"] for r in out[kernel]["at_main_path_shapes"])
+        out[kernel]["bound_ms_one_verification"] = sum(
+            r["bound_ms"] * r["calls"]
+            for r in out[kernel]["at_main_path_shapes"])
     a = qe_values((B, 28, 16), rng, dev)
     n_el = a[0][0].numel()
+    ms, by = bound(n_el * QE_INV_IMADS / rate * 1e3, 64 * n_el)
+    out["qe_inv"] = {"shape": f"({B}, 28, 16)", "ms": graph_ms(lambda: kq.inv(a)),
+                     "plain_ms": graph_ms(lambda: qe.inv_plain(a), 2),
+                     "plain_eager_ms": cuda_ms(lambda: qe.inv_plain(a), 2),
+                     "bound_ms": ms, "bound_by": by,
+                     "scan_latency_ms": QE_INV_DEPTH * latency_s * 1e3}
     pi = gl.split_u64(rng.integers(0, gl.P, size=(B, 36), dtype=np.uint64),
                       dev)
-    cases = {
-        # name: (kernel, plain, shape, IMADs, bytes, dependent products)
-        "qe_horner": (lambda: kq.horner(terms, x),
-                      lambda: qe.horner_plain(terms, x),
-                      f"terms ({B}, {n0}), x ({B},)",
-                      B * (n0 * QE_STEP_IMADS + 8), 32 * B * (n0 + 2), n0),
-        "qe_powers": (lambda: kq.powers(x, n0),
-                      lambda: qe.powers_plain(x, n0), f"x ({B},), n = {n0}",
-                      B * ((n0 - 1) * QE_STEP_IMADS + 8), 32 * B * (n0 + 1),
-                      n0 - 1),
-        "qe_inv": (lambda: kq.inv(a), lambda: qe.inv_plain(a),
-                   f"({B}, 28, 16)", n_el * QE_INV_IMADS, 64 * n_el,
-                   QE_INV_DEPTH),
-    }
-    out = {}
-    for name, (kern, plain, shape, imads, nbytes, depth) in cases.items():
-        ms, by = bound(imads / rate * 1e3, nbytes)
-        out[name] = {"shape": shape, "ms": graph_ms(kern),
-                     "plain_ms": graph_ms(plain, 2),
-                     "plain_eager_ms": cuda_ms(plain, 2),
-                     "bound_ms": ms, "bound_by": by,
-                     "scan_latency_ms": depth * latency_s * 1e3}
     n_perms = -(-36 // 8)
     ms, by, form = transcript_bound(n_perms, B, 16 * B * (36 + 4), rate,
                                     latency_s)
@@ -1258,6 +1331,20 @@ def main():
               f" ms eagerly; bound {t['bound_ms']:.5f} ms ({t['bound_by']})"
               + (f", the scan's chain {t['scan_latency_ms']:.5f} ms"
                  if "scan_latency_ms" in t else "") + f" [{card}]")
+    for name in ("qe_horner", "qe_powers"):
+        for r in chain_t[name]["at_main_path_shapes"]:
+            widths = ", ".join(f"{g}: {ms:.5f}"
+                               for g, ms in r["group_ms"].items())
+            print(f"{name} at {r['shape']} ({r['lanes']} lanes x {r['n']}, "
+                  f"{r['calls']} a verification): G = {r['group']}, kernel "
+                  f"{r['ms']:.5f} ms, bound {r['bound_ms']:.5f} ms "
+                  f"({r['bound_by']}); chain {r['n']} deep, n x L "
+                  f"{r['scan_latency_ms']:.5f} ms, split {r['chain_depth']} "
+                  f"deep, {r['split_latency_ms']:.5f} ms; ms at each G "
+                  f"{{{widths}}} [{card}]")
+        print(f"{name}: one verification's calls "
+              f"{chain_t[name]['ms_one_verification']:.5f} ms, bound "
+              f"{chain_t[name]['bound_ms_one_verification']:.5f} ms [{card}]")
 
     # -- 3. the main path (mxu, the default), then the cios path
     good = serde.ingest_proof(spec_step, raw_step, vraw_step)

@@ -41,8 +41,8 @@ _SIGNATURES = {
     "p2t_transcript_n_const": [],
     "p2t_transcript": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "p2t_gl_mul_chain": [_P, _U64, _I, _P],
-    "p2t_qe_horner": [_P] * 12 + [_I, _I, _P],
-    "p2t_qe_powers": [_P] * 8 + [_I, _I, _P],
+    "p2t_qe_horner": [_P] * 12 + [_I, _I, _I, _P],
+    "p2t_qe_powers": [_P] * 8 + [_I, _I, _I, _P],
     "p2t_qe_inv": [_P] * 8 + [_I, _P],
     "p2t_gl_mul": [_DESC, _P, _P],
     "p2t_gl_mul_const": [_DESC, _U64, _P, _P],

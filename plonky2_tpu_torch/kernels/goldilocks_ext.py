@@ -6,8 +6,9 @@ They replace the JAX package's ``jax.lax.scan`` chains of
 ``inv`` through ``plonky2_tpu/fields/goldilocks.py`` ``inv``), which the
 port's plain versions (``fields/goldilocks_ext.horner_plain``,
 ``powers_plain``, ``inv_plain``) unroll into a Python loop of several dozen
-int64 torch ops a Goldilocks product.  Each kernel runs one thread a lane
-(see the source's header for what bounds it).
+int64 torch ops a Goldilocks product.  Horner and powers split each lane's
+chain over a group of G threads, G from ``chain_group``; the inverse runs
+one thread an element (see the source's header for what bounds them).
 
 A QE value is the port's four int64 planes of 32-bit halves, passed to the
 kernel as they are.  Each wrapper broadcasts its operands to the lead shape
@@ -26,6 +27,12 @@ from __future__ import annotations
 import torch
 
 from . import build
+
+MAX_GROUP = 32
+# Threads a chain launch may take before the groups narrow: the card holds
+# far more, but past this many the extra products for x^G and x^j cost more
+# than the shorter chain saves (tuned on the H100, PERF.md).
+THREAD_BUDGET = 32768
 
 
 def _planes(a):
@@ -62,9 +69,42 @@ def _ptrs(planes):
     return [t.data_ptr() for t in planes]
 
 
-def horner(terms, x):
+def chain_depth(n, group):
+    """Dependent QE products of a chain of n steps split over ``group``
+    threads: log2 G for x^G (x^j beside it), ceil(n / G) steps, 1 for the
+    product by x^j; n for G = 1."""
+    if group == 1:
+        return n
+    return group.bit_length() - 1 + -(-n // group) + 1
+
+
+def chain_group(lanes, n):
+    """The threads a lane's chain of n steps is split over: the power of two
+    G <= min(32, max(n, 1)) with lanes x G <= THREAD_BUDGET whose chain is
+    the shortest (``chain_depth``); the narrower of a tie."""
+    best = 1
+    g = 2
+    while g <= min(MAX_GROUP, n) and lanes * g <= THREAD_BUDGET:
+        if chain_depth(n, g) < chain_depth(n, best):
+            best = g
+        g *= 2
+    return best
+
+
+def _group(lanes, n, group):
+    """``group``, or ``chain_group``'s when it is None; a power of two from
+    1 to MAX_GROUP."""
+    g = chain_group(lanes, n) if group is None else group
+    if g not in [1 << s for s in range(MAX_GROUP.bit_length())]:
+        raise ValueError(f"a chain's group must be a power of two from 1 to "
+                         f"{MAX_GROUP}, got {g}")
+    return g
+
+
+def horner(terms, x, group=None):
     """sum_i terms[..., i] x^i: terms QE (..., n), x QE broadcastable to
-    the lead shape -> QE of shape broadcast(terms' lead, x)."""
+    the lead shape -> QE of shape broadcast(terms' lead, x).  ``group``:
+    the threads a lane, ``chain_group``'s by default."""
     tp, xp = _planes(terms), _planes(x)
     device = _check(tp + xp, "QE Horner")
     n = tp[0].shape[-1]
@@ -73,25 +113,30 @@ def horner(terms, x):
     tp = _fit(tp, lead + (n,))
     xp = _fit(xp, lead)
     out = _empty(lead, device)
+    lanes = xp[0].numel()
+    group = _group(lanes, n, group)
     with torch.cuda.device(device):  # the launch goes to the current device
         rc = build.library().p2t_qe_horner(
-            *_ptrs(tp), *_ptrs(xp), *_ptrs(out), xp[0].numel(), n,
+            *_ptrs(tp), *_ptrs(xp), *_ptrs(out), lanes, n, group,
             build.stream_handle(device))
     build.check(rc, "qe_horner launch")
     horner.launches += 1
     return _qe(out)
 
 
-def powers(x, n):
-    """[x^0, .., x^(n-1)]: x QE (...) -> QE (..., n)."""
+def powers(x, n, group=None):
+    """[x^0, .., x^(n-1)]: x QE (...) -> QE (..., n).  ``group``: the
+    threads a lane, ``chain_group``'s by default."""
     xp = _planes(x)
     device = _check(xp, "QE powers")
     lead = torch.broadcast_shapes(*(t.shape for t in xp))
     xp = _fit(xp, lead)
     out = _empty(lead + (n,), device)
+    lanes = xp[0].numel()
+    group = _group(lanes, n, group)
     with torch.cuda.device(device):
         rc = build.library().p2t_qe_powers(
-            *_ptrs(xp), *_ptrs(out), xp[0].numel(), n,
+            *_ptrs(xp), *_ptrs(out), lanes, n, group,
             build.stream_handle(device))
     build.check(rc, "qe_powers launch")
     powers.launches += 1

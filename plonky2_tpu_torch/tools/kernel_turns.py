@@ -13,16 +13,19 @@ Poseidon-BN254 at each lane count the main path launches them at (7168: a
 leaf-scan step or FRI layer of a step batch of 256; 28672: a Merkle level of
 four oracles at once); times them at each, in turns A, CIOS, CIOS, A, and
 the transcript kernel at B=256 on the step schedule, each over 20 launches
-by CUDA events after a warm-up; digests each kernel's SASS (``cuobjdump
--sass``; equal digests mean the same machine code) and the transcript's
-output; and keeps ``ptxas -v``'s lines of the build.  The same seed gives
-every process the same inputs, so the transcript outputs of all processes
-must be equal.
+by CUDA events after a warm-up; times the QE Horner and powers kernels
+(``csrc/goldilocks_ext.cu``) at each of their calls in a step verification
+at B=256 and powers also at 7168 x 32, each in a CUDA graph of 20 launches
+(the mean of 3 replays), since one launch takes a few microseconds; digests
+each kernel's SASS (``cuobjdump -sass``; equal digests mean the same machine
+code), the transcript's output and the chains' outputs; and keeps ``ptxas
+-v``'s lines of the build.  The same seed gives every process the same
+inputs, so the transcript and chain outputs of all processes must be equal.
 
 Prints one JSON line per process, then a summary: per tree, each kernel's
-mean time (keys ``name@lanes`` for the BN254 kernels), SASS digest and
-instruction count, and its time over tree 0's, with the card's name and
-power limit.
+mean time (keys ``name@lanes`` for the BN254 kernels, ``name@lanesxn`` for
+the chains), SASS digest and instruction count, and its time over tree 0's,
+with the card's name and power limit.
 Exits 1 if a check fails.  Needs one CUDA device.
 """
 
@@ -31,6 +34,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import math
 import os
 import re
 import shutil
@@ -38,15 +42,27 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+
 REPO = Path(__file__).resolve().parents[2]
 BN_LANES = (7168, 28672)
 TRANSCRIPT_BATCH = 256
 ITERS = 20
 SEED = 2024
+# The chains' calls in a step verification at B=256 (chip_smoke.CHAIN_CALLS):
+# Horner's (terms, x) shapes and powers' (lanes, n), each with its calls a
+# verification; and powers at the final polynomial's 7168 x 32, on no path.
+HORNER_SHAPES = [((256, 63), (), 1), ((256, 4, 4), (), 1),
+                 ((256, 145), (256,), 2), ((256, 2, 8), (256, 1), 1),
+                 ((256, 258), (256,), 1), ((256, 2), (256,), 1),
+                 ((256, 1, 32), (256, 28), 1)]
+POWERS_SHAPES = [(256, 258, 1), (256, 2, 1), (7168, 32, 0)]
 # kernel key -> a substring of its mangled name only it has
 KERNELS = {"poseidon_bn254": "poseidon_bn254_kernel",
            "poseidon_bn254_cios": "poseidon_bn254_cios_kernel",
-           "poseidon_gl_transcript": "transcript_kernel"}
+           "poseidon_gl_transcript": "transcript_kernel",
+           "qe_horner": "qe_horner_kernel",
+           "qe_powers": "qe_powers_kernel"}
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 
 
@@ -85,10 +101,31 @@ def summarize(runs):
             t["ms"].setdefault(key, []).extend(ms)
     for t in trees.values():
         t["ms"] = {k: sum(v) / len(v) for k, v in t["ms"].items()}
+        t["ms_one_verification"] = {
+            name: sum(t["ms"][key] * calls for key, calls in keys.items()
+                      if key in t["ms"])
+            for name, keys in chain_calls().items()}
     base = trees[min(trees)]["ms"]
     for t in trees.values():
         t["over_tree_0"] = {k: v / base[k] for k, v in t["ms"].items()}
     return trees
+
+
+def horner_key(t_shape, x_shape):
+    """The timing key of a Horner call: ``qe_horner@{lanes}x{n}``."""
+    lanes = math.prod(np.broadcast_shapes(t_shape[:-1], x_shape))
+    return f"qe_horner@{lanes}x{t_shape[-1]}"
+
+
+def chain_calls():
+    """{kernel: {timing key: calls in one step verification}} of the chains."""
+    horner = {}
+    for t_shape, x_shape, calls in HORNER_SHAPES:
+        key = horner_key(t_shape, x_shape)
+        horner[key] = horner.get(key, 0) + calls
+    return {"qe_horner": horner,
+            "qe_powers": {f"qe_powers@{lanes}x{n}": calls
+                          for lanes, n, calls in POWERS_SHAPES}}
 
 
 def turn_order(n_trees):
@@ -98,12 +135,12 @@ def turn_order(n_trees):
 
 
 def _child():
-    import numpy as np
     import torch
 
     from plonky2_tpu_torch.fields import bn254
     from plonky2_tpu_torch.fields import goldilocks as gl
     from plonky2_tpu_torch.kernels import build
+    from plonky2_tpu_torch.kernels import goldilocks_ext as kq
     from plonky2_tpu_torch.kernels import poseidon_bn254 as kb
     from plonky2_tpu_torch.kernels import poseidon_bn254_cios as kc
     from plonky2_tpu_torch.kernels import poseidon_gl_transcript as kt
@@ -125,6 +162,33 @@ def _child():
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / ITERS
+
+    def graph_ms(fn):
+        """One fn() in a CUDA graph of ITERS calls, the mean of 3 replays."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(ITERS):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (3 * ITERS)
+
+    def qe_vals(shape):
+        return tuple(tuple(t.reshape(shape) for t in gl.split_u64(
+            rng.integers(0, gl.P, size=shape, dtype=np.uint64), dev))
+            for _ in range(2))
 
     ms = {}
     for lanes in BN_LANES:
@@ -155,6 +219,20 @@ def _child():
     ms["poseidon_gl_transcript"] = [
         cuda_ms(lambda: kt.run_transcript_kernel(schedule, obs, pi))]
 
+    chain_out = []
+    for t_shape, x_shape, _ in HORNER_SHAPES:
+        terms, x = qe_vals(t_shape), qe_vals(x_shape)
+        chain_out.append(kq.horner(terms, x))
+        ms[horner_key(t_shape, x_shape)] = [
+            graph_ms(lambda: kq.horner(terms, x))]
+    for lanes, n, _ in POWERS_SHAPES:
+        x = qe_vals((lanes,))
+        chain_out.append(kq.powers(x, n))
+        ms[f"qe_powers@{lanes}x{n}"] = [graph_ms(lambda: kq.powers(x, n))]
+    chain_digest = hashlib.sha256(b"".join(
+        t.cpu().numpy().tobytes() for out in chain_out for c in out
+        for t in c)).hexdigest()[:16]
+
     cuobjdump = (shutil.which("cuobjdump")
                  or "/usr/local/cuda/bin/cuobjdump")
     lib = build.BUILD_DIR / build.LIB_NAME
@@ -163,6 +241,7 @@ def _child():
     ptxas = [line.strip() for line in build.ptxas_log().splitlines()
              if "registers" in line or "spill" in line or "==" in line]
     print(json.dumps({"ms": ms, "transcript_digest": digest,
+                      "chain_digest": chain_digest,
                       "sass": sass_digests(sass), "ptxas": ptxas}))
 
 
@@ -195,11 +274,12 @@ def main(argv=None):
         run = {"tree": i, **json.loads(proc.stdout.strip().splitlines()[-1])}
         print(json.dumps(run))
         runs.append(run)
-    digests = {run["transcript_digest"] for run in runs}
-    if len(digests) != 1:
-        print(f"kernel_turns: the transcript outputs differ: {digests}",
-              file=sys.stderr)
-        return 1
+    for key in ("transcript_digest", "chain_digest"):
+        digests = {run[key] for run in runs}
+        if len(digests) != 1:
+            print(f"kernel_turns: the outputs differ ({key}): {digests}",
+                  file=sys.stderr)
+            return 1
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.splitlines()[0]

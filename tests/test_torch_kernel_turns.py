@@ -60,3 +60,16 @@ def test_main_without_a_gpu_exits_2(monkeypatch):
     import torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert kt.main([]) == 2
+
+
+def test_chain_calls_weigh_one_step_verification():
+    calls = kt.chain_calls()
+    assert sum(calls["qe_horner"].values()) == 8
+    assert sum(calls["qe_powers"].values()) == 2
+    assert calls["qe_horner"]["qe_horner@7168x32"] == 1
+    assert calls["qe_horner"]["qe_horner@256x145"] == 2
+    runs = [{"tree": 0, "sass": {},
+             "ms": {"qe_horner@256x145": [1.0], "qe_horner@256x258": [3.0],
+                    "qe_powers@256x258": [2.0], "qe_powers@7168x32": [5.0]}}]
+    got = kt.summarize(runs)[0]["ms_one_verification"]
+    assert got == {"qe_horner": 5.0, "qe_powers": 2.0}

@@ -234,6 +234,32 @@ def test_qe_powers_kernel_matches_plain(dev, lanes, n):
     assert _qe_equal(got, want)
 
 
+# The split chains (G threads a lane, G from kq.chain_group): n at and around
+# the group widths and a long chain, lane counts off the chains' blocks
+# (whole warps, about lanes x G / 132 threads); x holds 0 in its last lane
+# and 1 in lane 5 (the edge pairs of _qe_vals).
+QE_SPLIT_CASES = [(256, 31), (256, 32), (256, 33), (256, 64), (256, 65),
+                  (7, 1000), (7169, 32), (1023, 4), (257, 65)]
+
+
+@pytest.mark.parametrize("lanes,n", QE_SPLIT_CASES)
+def test_qe_chain_kernels_split_match_plain(dev, lanes, n):
+    terms = _qe(_qe_vals((lanes, n), seed=lanes + 3 * n), dev)
+    x = _qe(_qe_vals((lanes,), seed=lanes + n + 1, zero_lanes=1), dev)
+    assert _qe_equal(qe.horner(terms, x), qe.horner_plain(terms, x))
+    assert _qe_equal(qe.powers(x, n), qe.powers_plain(x, n))
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("lanes,n", [(256, 258), (7168, 32), (33, 65)])
+def test_qe_chain_kernels_match_plain_at_every_group(dev, lanes, n, group):
+    terms = _qe(_qe_vals((lanes, n), seed=n), dev)
+    x = _qe(_qe_vals((lanes,), seed=n + 1, zero_lanes=1), dev)
+    assert _qe_equal(kq.horner(terms, x, group=group),
+                     qe.horner_plain(terms, x))
+    assert _qe_equal(kq.powers(x, n, group=group), qe.powers_plain(x, n))
+
+
 def test_qe_powers_kernel_takes_strided_input(dev):
     x = _qe(_qe_vals((16, 16), seed=9), dev)
     x = tuple(tuple(t.T for t in c) for c in x)
