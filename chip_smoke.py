@@ -22,18 +22,28 @@
    fixtures, B=256) and at lane counts off their blocks, with broadcast and
    strided inputs, the edge values and x = 0 and 1, Horner and powers also
    at n around their group widths (31 to 65), n = 1000 and every group
-   width; each is timed at its largest main-path shape through a CUDA graph
-   of 20 launches beside its plain version's replay and eager times, and
-   Horner and powers at each of their calls in a step verification, at the
-   group width the wrapper picks and at every other; the PLONK stage's product
+   width, the inverse at element counts around a warp's 32 K elements with
+   0 at warp edges and in a whole warp, at every K elements a thread, and
+   on transposed, broadcast and sliced views against contiguous copies;
+   each is timed at its largest main-path shape through a CUDA graph of 20
+   launches beside its plain version's replay and eager times, Horner and
+   powers at each of their calls in a step verification at the group width
+   the wrapper picks and at every other, and the inverse at each of its
+   calls at the K the wrapper picks and at every other; the PLONK stage's
+   product
    kernels (Goldilocks a b and a c, QE a b and a b + c) are checked
    bit-exact at the main path's shapes (B=256, the largest (256, 28, 16, 8))
    and at lane counts off their 128-thread blocks, on every broadcast
    pattern of the call sites, strided views, an empty lead shape and the
-   constants 0, 1, 7 and DTH_ROOT, and the coset-interpolation scan on both
-   fixtures' gates at B=256 and odd lane counts against its plain version
-   on CPU copies; each is timed at its largest main-path shape in a CUDA
-   graph of 20 launches beside its plain version (every product plain);
+   constants 0, 1, 7 and DTH_ROOT, the bit-selected product by a constant
+   (fields/goldilocks.mul_const_bits) at both fixtures' subgroup_x and
+   cosetStart calls, odd lane counts, 64-bit indices, bits up to 63, odd
+   and full tables and strided and broadcast operands, and the
+   coset-interpolation scan on both fixtures' gates at B=256 and odd lane
+   counts against its plain version on CPU copies; each is timed at its
+   largest main-path shape in a CUDA graph of 20 launches beside its plain
+   version (every product plain), and the bit-selected product at its 3
+   calls beside the loop it replaced;
 4. the main path under PLONKY2_TPU_PB_IMPL=mxu, through the compiled
    verifier (one CUDA graph per key, captured at the key's first call; the
    cache emptied first): verifies 256 copies of testdata/step with one
@@ -44,8 +54,8 @@
    (2 x 123), the transcript kernel 4 times, the public-input sponge 2
    times (step has 36 public inputs, decode_block none), QE Horner 32, QE
    powers 8 and QE inverse 28 times (8, 2 and 7 a verification), the
-   Goldilocks product 72, the product by a constant 154, the QE product
-   614 and the interpolation scan 4 times (18, 39 and 38, 154 and 153, 1 a
+   Goldilocks product 64, the product by a constant 68, the QE product
+   614 and the interpolation scan 4 times (16, 17, 154 and 153, 1 a
    verification of step and decode_block), the CIOS kernel never;
 5. the same path under PLONKY2_TPU_PB_IMPL=cios: the same verdicts, the CIOS
    kernel and the transcript kernel launched, kernel A not;
@@ -57,7 +67,7 @@
    still right; one replay under torch.profiler launches kernel A (or the
    CIOS kernel) 63 times, the transcript kernel twice (the sponge and the
    transcript), QE Horner 8, QE powers 2 and QE inverse 7 times, the
-   products 18, 39 and 154 times and the interpolation scan once, and gives
+   products 16, 17 and 154 times and the interpolation scan once, and gives
    the device's events (against 61,926 with the products plain) and busy
    share; the eager wall against the median of 5 replays, the first call
    with its warm-up and capture, and the peak device memory with the graphs
@@ -193,22 +203,29 @@ DECODE_BN254_LAUNCHES = 60
 # decode_block: none, whose hash is zeros without a launch).
 CHAIN_LAUNCHES = {"qe_horner": 8, "qe_powers": 2, "qe_inv": 7}
 PI_HASH_LAUNCHES = {"step": 1, "decode_block": 0}
-# Of one verification: the calls of fields/goldilocks.mul and mul_const
-# (c not 0 or 1) and of fields/goldilocks_ext.mul and mul_add (square,
-# ea_mul, prod_axis, div, ... reach them), and the interpolation gate's
-# scan; the same on a query shard (counted on the CPU through each
-# wrapper's arithmetic, the dispatch forced).
+# Of one verification: the calls of fields/goldilocks.mul, mul_const (c
+# not 0 or 1) and mul_const_bits (FRI's subgroup_x, one, and each
+# reduction round's cosetStart, one a round) and of
+# fields/goldilocks_ext.mul and mul_add (square, ea_mul, prod_axis, div,
+# ... reach them), and the interpolation gate's scan; the same on a query
+# shard (counted on the CPU through each wrapper's arithmetic, the dispatch
+# forced).  Before the bit-selected product, subgroup_x's loop made lde_bits
+# + 1 products by a constant and each round's cosetStart arity_bits and a
+# Goldilocks product: 39 and 18 on step, 38 and 18 on decode_block.
 PRODUCT_LAUNCHES = {
-    "step": {"gl_mul": 18, "gl_mul_const": 39, "qe_mul": 154,
+    "step": {"gl_mul": 16, "gl_mul_const": 17, "qe_mul": 154,
              "coset_interp_scan": 1},
-    "decode_block": {"gl_mul": 18, "gl_mul_const": 38, "qe_mul": 153,
+    "decode_block": {"gl_mul": 16, "gl_mul_const": 17, "qe_mul": 153,
                      "coset_interp_scan": 1}}
 REPLAYS = 5
 # A step replay issued 367,045 device events while the chains and the
 # public-input hash still ran as plain torch, and 61,926 with them on the
-# card and the products plain (PERF.md §6, NVIDIA H100 80GB HBM3, 700.00 W).
+# card and the products plain, and 9,268 with the products on the card
+# before the bit-selected product (PERF.md §5 and §6, NVIDIA H100 80GB HBM3,
+# 700.00 W).
 PLAIN_CHAINS_REPLAY_EVENTS = 367045
 PLAIN_PRODUCTS_REPLAY_EVENTS = 61926
+LOOP_PRODUCTS_REPLAY_EVENTS = 9268
 # The chain kernels' checked shapes: (terms, x) of every horner call at B=256
 # on step and decode_block (the final polynomial is 32 and 16 long, the FRI
 # batch 258 and 257), lane counts off the chains' blocks (whole warps, about
@@ -248,18 +265,32 @@ CHAIN_CALLS = [("qe_horner", (256, 63), (), 1),
                ("qe_powers", (256,), 258, 1),
                ("qe_powers", (256,), 2, 1)]
 GROUPS = [1, 2, 4, 8, 16, 32]
-INV_CASES = [(256,), (256, 28), (256, 28, 16), (1,), (31,), (33,), (255,),
-             (257,)]
+# The inverse's checked shapes: its main-path shapes at B=256 and element
+# counts around a warp's 32 K elements (K = 1, 2, 4, 8); each case holds 0
+# at element 0, 31 and the last, and from 512 elements on in [256, 512),
+# a whole warp at every K (inv_values); each is checked at every K.
+INV_CASES = [(256,), (256, 28), (256, 28, 16), (1,), (31,), (32,), (33,),
+             (255,), (257,), (7168,)]
+# The inverse's calls in one step verification at B=256:
+# plonk_checks/vanishing.py:49, fri/verify.py:193 and :207, and :285 and
+# :292 in each of the 2 reduction rounds.
+INV_CALLS = [((256,), 1), ((256, 28), 2), ((256, 28, 16), 4)]
+PER_THREAD = [1, 2, 4, 8]
 PI_HASH_N = [0, 1, 7, 8, 9, 36]
 GL_EDGE = [0, 1, gl.P - 1, (1 << 32) - 1, 1 << 32, gl.P - (1 << 32)]
 # IMADs of the chains' functions, with a Goldilocks product at 8 and a
 # squaring at 6: a Horner or powers step is a QE product by a fixed x,
-# 4 products once 7 x1 is made (one product a lane); an inverse is 14
-# products and 65 squarings (the conjugate, the norm, the 64 squarings and
-# 9 products of the addition chain for x^(p-2), the scaling).
+# 4 products once 7 x1 is made (one product a lane).  The inverse in its
+# batch form (csrc/goldilocks_ext.cu): an element's norm (a0^2, a1 conj1,
+# times W), its running product, the walk back (2) and the scaling (2);
+# a warp's two 5-step scans, q[K - 1]^-1 (2) and one inversion of its
+# total (64 squarings and 9 products).  Its one-inversion-an-element form
+# was 14 products and 65 squarings an element, 75 products deep.
 QE_STEP_IMADS = 4 * 8
-QE_INV_IMADS = 14 * 8 + 65 * 6
-QE_INV_DEPTH = 75  # dependent products of one inverse (csrc/goldilocks_ext.cu)
+QE_INV_ELEMENT_IMADS = 6 + 7 * 8
+QE_INV_WARP_IMADS = (10 + 2 + 9) * 8 + 64 * 6
+QE_INV_ELEMENT_FORM_IMADS = 14 * 8 + 65 * 6
+QE_INV_DEPTH = 75  # dependent products of one inverse an element
 # The products: a Goldilocks product is 8 IMADs and reads 32 B and writes
 # 16 B an element (a product by a constant reads 16 B); a QE product is 5
 # Goldilocks products (W b1 first) and reads 64 B and writes 32 B.  A step
@@ -276,6 +307,8 @@ SCAN_STEP_DEPTH = 3
 PRODUCT_SHAPES = [(256,), (256, 28), (256, 80), (256, 4, 12), (256, 28, 16),
                   (256, 28, 16, 8), (1,), (31,), (33,), (255,), (257,)]
 MUL_CONSTS = [0, 1, 7, gl.DTH_ROOT]
+# The bit-selected product's lane counts off its 128-thread blocks.
+BITS_LANES = [1, 31, 33, 255, 257]
 SCAN_LANES = [STEP_BATCH, 1, 31, 33, 255, 257]
 GRAPH_LAUNCHES = 20
 # The refed step batch: the corrupted lane moved.
@@ -501,6 +534,26 @@ def strided(a):
     return tuple(tuple(t.T.contiguous().T for t in c) for c in a)
 
 
+def inv_zeros(n):
+    """The elements an inverse case holds 0 at: the first, the 32nd (the
+    last lane of a warp at K = 1), the last, and from 512 elements on all of
+    [256, 512), a whole warp at every K of PER_THREAD."""
+    zeros = {0, min(31, n - 1), n - 1}
+    if n >= 512:
+        zeros.update(range(256, 512))
+    return sorted(zeros)
+
+
+def inv_values(shape, rng, dev):
+    """qe_values of ``shape`` (the edge pairs first) with 0 at inv_zeros."""
+    a = qe_values(shape, rng, dev)
+    zeros = torch.as_tensor(inv_zeros(math.prod(shape)), device=dev)
+    for c in a:
+        for t in c:
+            t.view(-1)[zeros] = 0
+    return a
+
+
 def check_chain_kernels(dev, rng):
     """The QE Horner, powers and inverse kernels and the public-input sponge
     bit-exact against their plain versions at every case of HORNER_CASES,
@@ -546,13 +599,25 @@ def check_chain_kernels(dev, rng):
             hold("qe_powers", kq.powers(x, n, group=g), want_p,
                  f"{lanes} lanes, n = {n}, G = {g}")
     for shape in INV_CASES:
-        a = qe_values(shape, rng, dev, zero_lanes=1)
-        got = kq.inv(a)
-        hold("qe_inv", got, qe.inv_plain(a), f"{shape}")
-        if any(int(t.reshape(-1)[-1]) for c in got for t in c):
-            raise AssertionError(f"qe_inv: 0 does not give 0 at {shape}")
-    a = strided(qe_values((28, 256), rng, dev))
-    hold("qe_inv", kq.inv(a), qe.inv_plain(a), "strided (28, 256)")
+        a = inv_values(shape, rng, dev)
+        want = qe.inv_plain(a)
+        zeros = torch.as_tensor(inv_zeros(math.prod(shape)), device=dev)
+        for k in [None] + PER_THREAD:
+            got = kq.inv(a, per_thread=k)
+            hold("qe_inv", got, want, f"{shape}, K = {k or 'the rule'}")
+            if any(t.reshape(-1)[zeros].any() for c in got for t in c):
+                raise AssertionError(f"qe_inv: 0 does not give 0 at {shape}")
+    views = {"transposed (28, 256)": strided(qe_values((28, 256), rng, dev)),
+             "broadcast (256, 28, 1) to (256, 28, 16)": tuple(
+                 tuple(t.expand(256, 28, 16) for t in c)
+                 for c in qe_values((256, 28, 1), rng, dev)),
+             "even columns of (256, 28, 32)": tuple(
+                 tuple(t[..., ::2] for t in c)
+                 for c in qe_values((256, 28, 32), rng, dev))}
+    for what, a in views.items():
+        dense = tuple(tuple(t.contiguous() for t in c) for c in a)
+        hold("qe_inv", kq.inv(a), kq.inv(dense), f"strided: {what}")
+        hold("qe_inv", kq.inv(a), qe.inv_plain(a), f"strided: {what}")
     for n in PI_HASH_N:
         for batch in (1, STEP_BATCH):
             vals = rng.integers(0, gl.P, size=(batch, n), dtype=np.uint64)
@@ -562,6 +627,23 @@ def check_chain_kernels(dev, rng):
             hold("poseidon_gl_pi_hash", (pgl.hash_no_pad(inputs),),
                  (pgl.hash_no_pad_plain(inputs),), f"n = {n}, B = {batch}")
     return err
+
+
+def inv_bound(n_el, k, rate):
+    """(ms, what bounds it) of the inverse of n_el elements in its batch
+    form, K elements a thread: 64 B an element against the elements' IMADs
+    and one inversion a warp of 32 K elements."""
+    warps = -(-n_el // (32 * k))
+    imads = n_el * QE_INV_ELEMENT_IMADS + warps * QE_INV_WARP_IMADS
+    return bound(imads / rate * 1e3, 64 * n_el)
+
+
+def inv_depth(k):
+    """Dependent products of a warp of the batch inverse, K elements a
+    thread: the norm 2, the lane's running product K - 1, the scans 5, the
+    inversion 73 (64 squarings, 9 products), q[K - 1]^-1 2, the walk back
+    K - 1 and an element's N^-1 and scaling 2."""
+    return 2 + (k - 1) + 5 + 73 + 2 + (k - 1) + 2
 
 
 def chain_call(kernel, shape, arg, rng, dev):
@@ -621,14 +703,34 @@ def time_chain_kernels(dev, rng, rate, latency_s):
         out[kernel]["bound_ms_one_verification"] = sum(
             r["bound_ms"] * r["calls"]
             for r in out[kernel]["at_main_path_shapes"])
-    a = qe_values((B, 28, 16), rng, dev)
-    n_el = a[0][0].numel()
-    ms, by = bound(n_el * QE_INV_IMADS / rate * 1e3, 64 * n_el)
-    out["qe_inv"] = {"shape": f"({B}, 28, 16)", "ms": graph_ms(lambda: kq.inv(a)),
-                     "plain_ms": graph_ms(lambda: qe.inv_plain(a), 2),
-                     "plain_eager_ms": cuda_ms(lambda: qe.inv_plain(a), 2),
-                     "bound_ms": ms, "bound_by": by,
-                     "scan_latency_ms": QE_INV_DEPTH * latency_s * 1e3}
+    out["qe_inv"] = {"at_main_path_shapes": []}
+    for shape, calls in INV_CALLS:
+        a = qe_values(shape, rng, dev)
+        n_el = math.prod(shape)
+        k = kq.inv_per_thread(n_el)
+        ms, by = inv_bound(n_el, k, rate)
+        row = {"shape": f"{shape}", "elements": n_el, "calls": calls,
+               "per_thread": k, "ms": graph_ms(lambda: kq.inv(a)),
+               "bound_ms": ms, "bound_by": by,
+               "bound_one_inversion_an_element_ms": bound(
+                   n_el * QE_INV_ELEMENT_FORM_IMADS / rate * 1e3,
+                   64 * n_el)[0],
+               "per_thread_ms": {j: graph_ms(lambda: kq.inv(a, per_thread=j))
+                                 for j in PER_THREAD},
+               "scan_latency_ms": QE_INV_DEPTH * latency_s * 1e3,
+               "batch_depth": inv_depth(k),
+               "batch_latency_ms": inv_depth(k) * latency_s * 1e3}
+        if shape == INV_CALLS[-1][0]:  # the largest
+            row["plain_ms"] = graph_ms(lambda: qe.inv_plain(a), 2)
+            row["plain_eager_ms"] = cuda_ms(lambda: qe.inv_plain(a), 2)
+            out["qe_inv"].update({key: v for key, v in row.items()
+                                  if key != "per_thread_ms"})
+        out["qe_inv"]["at_main_path_shapes"].append(row)
+    rows = out["qe_inv"]["at_main_path_shapes"]
+    out["qe_inv"]["ms_one_verification"] = sum(r["ms"] * r["calls"]
+                                               for r in rows)
+    out["qe_inv"]["bound_ms_one_verification"] = sum(
+        r["bound_ms"] * r["calls"] for r in rows)
     pi = gl.split_u64(rng.integers(0, gl.P, size=(B, 36), dtype=np.uint64),
                       dev)
     n_perms = -(-36 // 8)
@@ -683,6 +785,48 @@ def scan_inputs(gate, lanes, rng, dev):
             ea((lanes, 1)), tuple(gl.device_table(t, dev) for t in xs),
             tuple(gl.device_table(t, dev) for t in ws),
             gl.device_table(active, dev))
+
+
+def bits_calls(spec):
+    """The bit-selected products by a constant of one verification of
+    ``spec`` (fields/goldilocks.mul_const_bits in fri/verify.py): (call, a
+    given, c, off, table): subgroup_x, a = 1, c the group generator, the
+    lde_bits low bits of the query index; each reduction round's
+    cosetStart, a = the round's subgroup_x, c = 1, its arity_bits above the
+    earlier rounds'."""
+    lde = spec.lde_bits
+    calls = [("subgroup_x", False, gl.MULTIPLICATIVE_GROUP_GENERATOR, 0,
+              gl.bitrev_powers(gl.primitive_root_of_unity(lde), lde))]
+    off = 0
+    for j, bits in enumerate(spec.reduction_arity_bits):
+        g_inv = pow(gl.primitive_root_of_unity(bits), (1 << bits) - 1, gl.P)
+        calls.append((f"cosetStart, round {j}", True, 1, off,
+                      gl.bitrev_powers(g_inv, bits)))
+        off += bits
+    return calls
+
+
+def query_indices(shape, bits, rng, dev):
+    """GL indices below 2^bits (a 64-bit canonical value for bits = 64);
+    the first take 0, 1 and the largest."""
+    top = gl.P if bits == 64 else 1 << bits
+    v = np.array(rng.integers(0, top, size=shape, dtype=np.uint64))
+    flat = v.reshape(-1)
+    edge = [0, 1, top - 1][:flat.size]
+    flat[:len(edge)] = edge
+    return tuple(t.reshape(shape) for t in gl.split_u64(v, dev))
+
+
+def bits_loop(a, c, bits, table):
+    """The loop that the bit-selected product replaced in fri/verify.py, on
+    the kernels: a product by a constant and a select a bit (``bits`` made
+    before, as the loop found them), then the product by a and by c."""
+    prod = (torch.ones_like(bits[0]), torch.zeros_like(bits[0]))
+    for i in reversed(range(len(table))):
+        prod = gl.select(bits[i].bool(), gl.mul_const(prod, table[i]), prod)
+    if a is not None:
+        prod = gl.mul(prod, a)
+    return gl.mul_const(prod, c)
 
 
 def check_product_kernels(dev, rng, specs):
@@ -763,6 +907,48 @@ def check_product_kernels(dev, rng, specs):
             what, n)
         run("qe_mul", lambda: qe.mul_add(x, y, z),
             lambda: qe.mul_add_plain(x, y, z), f"{what}, a b + c", n)
+    Q = specs["step"].num_query_rounds
+    lde = specs["step"].lde_bits
+    bits_cases = []
+    for fixture, spec in specs.items():
+        for call, has_a, c, off, table in bits_calls(spec):
+            shape = (STEP_BATCH, spec.num_query_rounds)
+            bits_cases.append((f"{fixture}'s {call} at {shape}",
+                               gl_values(shape, rng, dev) if has_a else None,
+                               c, query_indices(shape, spec.lde_bits, rng,
+                                                dev), off, table))
+    sub = bits_calls(specs["step"])[0]
+    for lanes in BITS_LANES:
+        bits_cases.append((f"subgroup_x at {lanes} lanes", None, sub[2],
+                           query_indices((lanes,), lde, rng, dev), 0, sub[4]))
+    table = [int(t) for t in rng.integers(0, gl.P, size=64, dtype=np.uint64)]
+    idx64 = query_indices((STEP_BATCH, Q), 64, rng, dev)
+    x = gl_values((STEP_BATCH, Q), rng, dev)
+    idx_t = tuple(t.T for t in query_indices((Q, STEP_BATCH), lde, rng, dev))
+    x_t = tuple(t.T for t in gl_values((Q, STEP_BATCH), rng, dev))
+    bits_cases += [
+        ("bits 48 to 63 of 64-bit indices", x, 7, idx64, 48, table[:16]),
+        ("all 64 bits", x, gl.DTH_ROOT, idx64, 0, table),
+        ("5 bits at 3", None, gl.DTH_ROOT, idx64, 3, table[:5]),
+        ("1 bit at 63", x, 1, idx64, 63, table[:1]),
+        ("c = 0", x, 0, idx64, 0, table[:4]),
+        ("transposed index and a", x_t, 1, idx_t, 4, sub[4][:4]),
+        ("a (B, 1) against the index (B, Q)",
+         gl_values((STEP_BATCH, 1), rng, dev), 1, idx64, 0, table[:4]),
+        ("empty (B, 0)", None, 7,
+         query_indices((STEP_BATCH, 0), lde, rng, dev), 0, table[:4])]
+    for what, a, c, idx, off, table in bits_cases:
+        n = int(idx[0].numel() > 0)
+        run("gl_mul_const", lambda: gl.mul_const_bits(a, c, idx, off, table),
+            lambda: gl.mul_const_bits_plain(a, c, idx, off, table),
+            f"bit-selected: {what}", n)
+        if what.startswith("transposed"):
+            dense = (tuple(t.contiguous() for t in a),
+                     tuple(t.contiguous() for t in idx))
+            run("gl_mul_const",
+                lambda: gl.mul_const_bits(a, c, idx, off, table),
+                lambda: gl.mul_const_bits(dense[0], c, dense[1], off, table),
+                f"bit-selected: {what} against contiguous copies", 2)
     for fixture, spec in specs.items():
         gate = coset_gate(spec)
         for lanes in SCAN_LANES:
@@ -821,7 +1007,40 @@ def time_product_kernels(dev, rng, rate, latency_s, spec):
                      "bound_ms": ms, "bound_by": by}
     out["coset_interp_scan"]["scan_latency_ms"] = (
         deg * SCAN_STEP_DEPTH * latency_s * 1e3)
+    out["gl_mul_const"]["bits_form"] = time_bits_form(dev, rng, rate, spec)
     return out
+
+
+def time_bits_form(dev, rng, rate, spec):
+    """The bit-selected product at each of its calls in a verification of
+    ``spec`` at B=STEP_BATCH, in a CUDA graph, beside the loop it replaced
+    (a product by a constant and a select a bit) and its bound: the index
+    (and a) read once, the output written once, against the products this
+    run's indices select and those by a and c."""
+    B, Q = STEP_BATCH, spec.num_query_rounds
+    idx = query_indices((B, Q), spec.lde_bits, rng, dev)
+    idx_np = gl.join_u64(idx)
+    x = gl_values((B, Q), rng, dev)
+    bits = gl.to_bits(idx, 64)
+    rows = []
+    for call, has_a, c, off, table in bits_calls(spec):
+        a = x if has_a else None
+        n = len(table)
+        selected = sum(
+            int(((idx_np >> np.uint64(off + i)) & np.uint64(1)).sum())
+            for i in range(n))
+        products = selected + B * Q * (int(has_a) + int(c != 1))
+        ms, by = bound(products * GL_MUL_IMADS / rate * 1e3,
+                       (32 + 16 * has_a) * B * Q)
+        rows.append({
+            "call": call, "shape": f"({B}, {Q})", "bits": n, "off": off,
+            "ms": graph_ms(lambda: gl.mul_const_bits(a, c, idx, off, table)),
+            "loop_ms": graph_ms(lambda: bits_loop(a, c, bits[off:off + n],
+                                                  table)),
+            "loop_launches": (f"{n + int(has_a) + int(c != 1)} product "
+                              f"launches and {n} selects"),
+            "bound_ms": ms, "bound_by": by})
+    return rows
 
 
 def ptxas_report():
@@ -1025,7 +1244,8 @@ def compiled_checks(impl, dev, card, spec_step, batch_step, expected,
           f"{[round(w, 4) for w in graph_only]} (median "
           f"{np.median(graph_only):.4f} s) [{card}]")
     print(f"{impl}: one replay under torch.profiler: wall {wall:.4f} s, "
-          f"{n_dev} device events (with the plain products: "
+          f"{n_dev} device events (with FRI's bit loops: "
+          f"{LOOP_PRODUCTS_REPLAY_EVENTS}; with the plain products: "
           f"{PLAIN_PRODUCTS_REPLAY_EVENTS}; with the plain chains too: "
           f"{PLAIN_CHAINS_REPLAY_EVENTS}), device busy {busy:.4f} s "
           f"({busy / wall:.4f} of the wall); {kern} [{card}]")
@@ -1314,16 +1534,20 @@ def main():
     chain_err = check_chain_kernels(dev, rng)
     print(f"QE Horner, powers and inverse and the public-input sponge: "
           f"bit-exact at {len(HORNER_CASES)}, {len(POWERS_CASES)} and "
-          f"{len(INV_CASES)} shapes, strided input, and n = {PI_HASH_N} at "
-          f"B = 1 and {STEP_BATCH}")
+          f"{len(INV_CASES)} shapes (the inverse at every K of {PER_THREAD}, "
+          f"0 at warp edges and a whole warp), strided input, and n = "
+          f"{PI_HASH_N} at B = 1 and {STEP_BATCH}")
     chain_t = time_chain_kernels(dev, rng, rate, latency_s)
     prod_err = check_product_kernels(
         dev, rng, {"step": spec_step, "decode_block": spec_db_only})
     print(f"Goldilocks and QE products: bit-exact at {PRODUCT_SHAPES}, on "
           f"the call sites' broadcast patterns, strided views and an empty "
-          f"lead shape, c = {MUL_CONSTS}; the interpolation scan on both "
-          f"fixtures' gates at {SCAN_LANES} lanes against the plain scan on "
-          f"CPU copies")
+          f"lead shape, c = {MUL_CONSTS}; the bit-selected product by a "
+          f"constant at both fixtures' subgroup_x and cosetStart calls, "
+          f"{BITS_LANES} lanes, 64-bit indices, bits 48 to 63, all 64, odd "
+          f"tables, c = 0, strided and broadcast operands; the "
+          f"interpolation scan on both fixtures' gates at {SCAN_LANES} lanes "
+          f"against the plain scan on CPU copies")
     chain_t.update(time_product_kernels(dev, rng, rate, latency_s, spec_step))
     for name, t in chain_t.items():
         print(f"{name} at {t['shape']}: kernel {t['ms']:.5f} ms, plain "
@@ -1345,6 +1569,24 @@ def main():
         print(f"{name}: one verification's calls "
               f"{chain_t[name]['ms_one_verification']:.5f} ms, bound "
               f"{chain_t[name]['bound_ms_one_verification']:.5f} ms [{card}]")
+    for r in chain_t["qe_inv"]["at_main_path_shapes"]:
+        per_k = ", ".join(f"{k}: {ms:.5f}"
+                          for k, ms in r["per_thread_ms"].items())
+        print(f"qe_inv at {r['shape']} ({r['calls']} a verification): K = "
+              f"{r['per_thread']}, kernel {r['ms']:.5f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}; one inversion an "
+              f"element: {r['bound_one_inversion_an_element_ms']:.5f}); a "
+              f"warp {r['batch_depth']} products deep, "
+              f"{r['batch_latency_ms']:.5f} ms; ms at each K {{{per_k}}} "
+              f"[{card}]")
+    print(f"qe_inv: one verification's calls "
+          f"{chain_t['qe_inv']['ms_one_verification']:.5f} ms, bound "
+          f"{chain_t['qe_inv']['bound_ms_one_verification']:.5f} ms [{card}]")
+    for r in chain_t["gl_mul_const"]["bits_form"]:
+        print(f"gl_mul_const, bit-selected, {r['call']} at {r['shape']}: "
+              f"kernel {r['ms']:.5f} ms (one launch) against the loop it "
+              f"replaces {r['loop_ms']:.5f} ms ({r['loop_launches']}); "
+              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}) [{card}]")
 
     # -- 3. the main path (mxu, the default), then the cios path
     good = serde.ingest_proof(spec_step, raw_step, vraw_step)
@@ -1552,7 +1794,8 @@ def main():
           f"{REPLAYS}): mxu {replay['mxu']['graph_median_s']:.4f} s, cios "
           f"{replay['cios']['graph_median_s']:.4f} s; device events in one "
           f"profiled replay: mxu {replay['mxu']['device_events']}, cios "
-          f"{replay['cios']['device_events']} (with the plain products: "
+          f"{replay['cios']['device_events']} (with FRI's bit loops: "
+          f"{LOOP_PRODUCTS_REPLAY_EVENTS}; with the plain products: "
           f"{PLAIN_PRODUCTS_REPLAY_EVENTS}; with the plain chains too: "
           f"{PLAIN_CHAINS_REPLAY_EVENTS}) [{card}]")
     print(f"kernel bounds at the timed shapes: BN254 {lanes[-1]} lanes "

@@ -1,7 +1,7 @@
 // The verifier's sequential quadratic-extension chains for Hopper (sm_90a):
 // Horner evaluation and powers, each lane's chain split over a group of
-// threads, and the inverse, one thread an element, over F_p[X]/(X^2 - 7),
-// p = 2^64 - 2^32 + 1.
+// threads, and the inverse, by batch inversion across a warp, over
+// F_p[X]/(X^2 - 7), p = 2^64 - 2^32 + 1.
 //
 // Replaces the JAX package's jax.lax.scan chains (no Pallas kernel; under
 // jit each scan is one device loop):
@@ -15,14 +15,16 @@
 // The port's plain versions are fields/goldilocks_ext.py horner_plain,
 // powers_plain and inv_plain; the values are canonical and field arithmetic
 // is exact, so the kernels are bit-exact with them whatever order they sum
-// in.
+// or multiply in.
 //
-// Layout: the port's representation, read and written as it is.  A QE
-// value is four int64 planes of 32-bit halves, (lo0, hi0, lo1, hi1); the
-// kernel assembles u64 = lo | hi << 32 and splits its results back, so no
-// torch op packs or unpacks.  Horner's terms and the powers are (L, n)
-// row-major, as the call sites make and read them; the wrapper broadcasts
-// and makes the planes contiguous, and transposes nothing.
+// Layout: the port's representation.  A QE value is four int64 planes of
+// 32-bit halves, (lo0, hi0, lo1, hi1); the kernel assembles u64 = lo | hi <<
+// 32 and splits its results back, so no torch op packs or unpacks.  Inputs
+// are read where they lie, each plane by its element strides over the lead
+// shape (strided.cuh; 0 along a broadcast axis, and for Horner's terms a
+// stride along n too), so a broadcast x or terms costs no copy; outputs are
+// contiguous: Horner's (lanes), the powers' (lanes, n) row-major, the
+// inverse's the lead shape.
 //
 // What bounds it on the H100: on the main path (B = 256) the chains have
 // 256 to 7,168 lanes and n = 2 to 258, and bytes (2.1 MB of terms at
@@ -52,25 +54,35 @@
 // Blocks are a whole number of warps, about lanes x G / SMs threads each
 // (32 to 256), so that a launch spreads over the SMs.
 //
-// The inverse is 75 dependent products deep (3 for the norm, 71 in gl_inv's
-// addition chain, 1 for the scaling) and takes 14 products and 65 squarings
-// an element, so on (256, 28, 16) = 114,688 elements it also has an IMAD
-// throughput bound (both counted in chip_smoke.py); it runs one thread an
-// element in blocks of 64.
+// The inverse: the first design ran one thread an element, each a whole
+// gl_inv (64 squarings and 9 products) besides the norm and the scaling,
+// about 79 products an element; on (256, 28, 16) = 114,688 elements that is
+// instruction throughput, not latency (75 products deep).  Now a warp
+// inverts the product of its 32 K norms once (Montgomery's batch
+// inversion): an element costs about 8 products (the norm 3, the lane's
+// running product 1, the walk back 2, the scaling 2), and a warp adds 10
+// for its two scans and one gl_inv of its total, computed by all 32 lanes
+// at once, so the inverse's 79 products are spread over 32 K elements.  K,
+// the elements a thread (1, 2, 4 or 8), is the wrapper's choice
+// (kernels/goldilocks_ext.inv_per_thread): more elements a warp spread the
+// inverse thinner, fewer warps hide less latency.  The chain is about 90 +
+// 2 K products deep a warp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "goldilocks.cuh"
+#include "strided.cuh"
 
 namespace {
 
-constexpr int THREADS = 64;        // the inverse's blocks
 constexpr int MAX_GROUP = 32;      // a group lies inside one warp
-constexpr int MAX_BLOCK = 256;     // the chains' largest block
+constexpr int MAX_BLOCK = 256;     // the largest block
 constexpr int CHUNK = 2;           // Horner's terms fetched ahead, in steps
+constexpr int MAX_PER_THREAD = 8;  // the inverse's elements a thread
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
-// A QE array as its four planes of int64 32-bit halves.
+// A QE output as its four contiguous planes of int64 32-bit halves.
 struct Planes {
   long long* lo0;
   long long* hi0;
@@ -78,13 +90,21 @@ struct Planes {
   long long* hi1;
 };
 
-__device__ __forceinline__ u64 join(const long long* lo, const long long* hi,
-                                    size_t i) {
-  return (u64)lo[i] | ((u64)hi[i] << 32);
-}
+// The Horner terms' element strides along n, a plane each (0 where a plane
+// broadcasts along it).
+struct Steps {
+  long long d[4];
+};
 
-__device__ __forceinline__ Qe load(const Planes& a, size_t i) {
-  return Qe{join(a.lo0, a.hi0, i), join(a.lo1, a.hi1, i)};
+// The QE value of planes p[0..3] at offsets o[0..3] plus i steps.
+__device__ __forceinline__ Qe load(const long long* const* p,
+                                   const long long* o, long long i = 0,
+                                   const long long* step = nullptr) {
+  u64 h[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    h[k] = (u64)p[k][o[k] + (step ? i * step[k] : 0)];
+  return Qe{h[0] | (h[1] << 32), h[2] | (h[3] << 32)};
 }
 
 __device__ __forceinline__ void store(const Planes& a, size_t i, Qe v) {
@@ -96,7 +116,7 @@ __device__ __forceinline__ void store(const Planes& a, size_t i, Qe v) {
 
 // The lanes of this thread's group of g (a power of two <= 32) in its warp.
 __device__ __forceinline__ unsigned group_mask(int g) {
-  if (g == MAX_GROUP) return 0xFFFFFFFFu;
+  if (g == MAX_GROUP) return FULL;
   return ((1u << g) - 1) << ((threadIdx.x & 31) & ~(g - 1));
 }
 
@@ -144,24 +164,25 @@ __device__ __forceinline__ Slot slot(int log_g) {
 
 // out[l] = sum_i terms[l, i] x[l]^i, by a group of g = 2^log_g threads a
 // lane.  Thread j's term of step k is i = j + g k; a step multiplies by
-// y = x^g, from k = ceil(n / g) - 1 down to 0.
+// y = x^g, from k = ceil(n / g) - 1 down to 0.  Planes of s: the terms'
+// four over the lanes (their steps along n in step), then x's four.
 __global__ void __launch_bounds__(MAX_BLOCK)
-qe_horner_kernel(Planes terms, Planes x, Planes out, int lanes, int n,
-                 int log_g) {
+qe_horner_kernel(Strided<8> s, Steps step, Planes out, int n, int log_g) {
   const int g = 1 << log_g;
-  const Slot s = slot(log_g);
-  if (s.lane >= lanes) return;  // a whole group: blocks are whole warps
+  const Slot sl = slot(log_g);
+  if (sl.lane >= s.n) return;  // a whole group: blocks are whole warps
   const unsigned mask = group_mask(g);
-  const size_t row = (size_t)s.lane * n;
+  long long o[8];
+  offsets(s, sl.lane, o);
   auto fetch = [&](int k) -> Qe {
-    const int i = s.j + g * k;
-    return (k >= 0 && i < n) ? load(terms, row + i) : Qe{0, 0};
+    const int i = sl.j + g * k;
+    return (k >= 0 && i < n) ? load(s.ptr, o, i, step.d) : Qe{0, 0};
   };
   // the first chunk's terms are on their way while the powers are made
   Qe buf[CHUNK];
 #pragma unroll
   for (int c = 0; c < CHUNK; ++c) buf[c] = fetch((n + g - 1) / g - 1 - c);
-  const GroupPowers gp = group_powers(load(x, s.lane), s.j, g);
+  const GroupPowers gp = group_powers(load(s.ptr + 4, o + 4), sl.j, g);
   const u64 xj1w = gl_mul(gp.xj.c1, W);
   Qe acc{0, 0};
 #pragma unroll 1
@@ -180,32 +201,86 @@ qe_horner_kernel(Planes terms, Planes x, Planes out, int lanes, int n,
   for (int off = g >> 1; off > 0; off >>= 1)
     acc = qe_add(acc, Qe{__shfl_xor_sync(mask, acc.c0, off, g),
                          __shfl_xor_sync(mask, acc.c1, off, g)});
-  if (s.j == 0) store(out, s.lane, acc);
+  if (sl.j == 0) store(out, sl.lane, acc);
 }
 
 // out[l, i] = x[l]^i, i < n, by a group of g = 2^log_g threads a lane:
 // thread j writes i = j + g k, k = 0, 1, .., multiplying by y = x^g.
 __global__ void __launch_bounds__(MAX_BLOCK)
-qe_powers_kernel(Planes x, Planes out, int lanes, int n, int log_g) {
+qe_powers_kernel(Strided<4> s, Planes out, int n, int log_g) {
   const int g = 1 << log_g;
-  const Slot s = slot(log_g);
-  if (s.lane >= lanes) return;
-  const GroupPowers gp = group_powers(load(x, s.lane), s.j, g);
+  const Slot sl = slot(log_g);
+  if (sl.lane >= s.n) return;
+  long long o[4];
+  offsets(s, sl.lane, o);
+  const GroupPowers gp = group_powers(load(s.ptr, o), sl.j, g);
   Qe p = gp.xj;
-  const size_t row = (size_t)s.lane * n;
+  const size_t row = (size_t)sl.lane * n;
 #pragma unroll 1
-  for (int i = s.j; i < n; i += g) {
+  for (int i = sl.j; i < n; i += g) {
     store(out, row + i, p);
     p = qe_mul_w(p, gp.y, gp.y1w);
   }
 }
 
-// out[e] = a[e]^-1, 0 for 0
-__global__ void __launch_bounds__(THREADS)
-qe_inv_kernel(Planes a, Planes out, int elements) {
-  const int e = blockIdx.x * THREADS + threadIdx.x;
-  if (e >= elements) return;
-  store(out, e, qe_inv(load(a, e)));
+// out[e] = a[e]^-1, 0 for 0, by batch inversion across a warp.  Lane l of
+// warp w holds the K elements e = 32 K w + 32 j + l, j < K (neighbouring
+// lanes on neighbouring elements).  Each element's norm N = a0^2 + W a1
+// conj1 (conj1 = -a1) is 1 in place of 0 (N = 0 only for a = 0, whose a0
+// and conj1 are 0, so its output is 0 whatever N^-1 stands for) and past
+// the end.  A lane multiplies its K norms into q[K - 1]; the warp scans the
+// lanes' products both ways with __shfl_up_sync / __shfl_down_sync (5 steps
+// each) and every lane inverts the warp's total (the same gl_inv on all 32
+// lanes: no divergence, no shared memory); total^-1 times the lanes' product
+// before and after this one is q[K - 1]^-1, from which the lane walks its K
+// elements backwards: N_j^-1 = q[K - 1 .. j + 1]^-1 q[j - 1].  Every lane of
+// every warp reaches every shuffle (the grid is whole warps, none returns
+// early).
+template <int K>
+__global__ void __launch_bounds__(MAX_BLOCK)
+qe_inv_kernel(Strided<4> s, Planes out) {
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long first = warp * 32 * K + lane;
+  u64 a0[K], c1[K], norm[K], q[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const long long e = first + 32 * j;
+    Qe a{0, 0};
+    if (e < s.n) {
+      long long o[4];
+      offsets(s, e, o);
+      a = load(s.ptr, o);
+    }
+    a0[j] = a.c0;
+    c1[j] = gl_sub(0, a.c1);
+    const u64 nj = gl_add(gl_mul(a.c0, a.c0), gl_mul(gl_mul(a.c1, c1[j]), W));
+    norm[j] = nj ? nj : 1;
+    q[j] = j ? gl_mul(q[j - 1], norm[j]) : norm[j];
+  }
+  // inc: the product of lanes 0 .. lane; suf: of lanes lane .. 31
+  u64 inc = q[K - 1], suf = q[K - 1];
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const u64 up = __shfl_up_sync(FULL, inc, d);
+    const u64 down = __shfl_down_sync(FULL, suf, d);
+    inc = gl_mul(inc, lane >= d ? up : 1);
+    suf = gl_mul(suf, lane + d < 32 ? down : 1);
+  }
+  const u64 total = __shfl_sync(FULL, inc, 31);
+  const u64 before = __shfl_up_sync(FULL, inc, 1);
+  const u64 after = __shfl_down_sync(FULL, suf, 1);
+  u64 y = gl_mul(gl_mul(gl_inv(total), lane > 0 ? before : 1),
+                 lane < 31 ? after : 1);  // q[K - 1]^-1
+#pragma unroll
+  for (int j = K - 1; j >= 0; --j) {
+    const u64 norm_inv = j ? gl_mul(y, q[j - 1]) : y;
+    if (j) y = gl_mul(y, norm[j]);
+    const long long e = first + 32 * j;
+    if (e < s.n)
+      store(out, e, Qe{gl_mul(a0[j], norm_inv), gl_mul(c1[j], norm_inv)});
+  }
 }
 
 Planes planes(void* lo0, void* hi0, void* lo1, void* hi1) {
@@ -213,76 +288,94 @@ Planes planes(void* lo0, void* hi0, void* lo1, void* hi1) {
                 (long long*)hi1};
 }
 
-int blocks(int lanes) { return (lanes + THREADS - 1) / THREADS; }
-
-// log2 g for a power of two g in [1, MAX_GROUP], else -1.
-int group_log(int g) {
-  for (int s = 0; (1 << s) <= MAX_GROUP; ++s)
+// log2 g for a power of two g in [1, max], else -1.
+int power_log(int g, int max) {
+  for (int s = 0; (1 << s) <= max; ++s)
     if (g == 1 << s) return s;
   return -1;
 }
 
-// A chain launch of lanes x 2^log_g threads: blocks of whole warps, about
-// one block an SM up to MAX_BLOCK threads.
-struct ChainLaunch {
+// A launch of `threads` threads: blocks of whole warps, about one block an
+// SM up to MAX_BLOCK threads.
+struct Launch {
   int grid, block;
 };
 
-ChainLaunch chain_launch(int lanes, int log_g) {
+Launch launch_shape(long long threads) {
   int device = 0, sms = 1;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const long long threads = (long long)lanes << log_g;
   long long block = (threads + sms - 1) / sms;
   block = (block + 31) / 32 * 32;
   block = block < 32 ? 32 : (block > MAX_BLOCK ? MAX_BLOCK : block);
-  return ChainLaunch{(int)((threads + block - 1) / block), (int)block};
+  return Launch{(int)((threads + block - 1) / block), (int)block};
+}
+
+template <int K>
+void launch_inv(const Strided<4>& s, Planes out, cudaStream_t stream) {
+  const long long warps = (s.n + 32 * K - 1) / (32 * K);
+  const Launch c = launch_shape(warps * 32);
+  qe_inv_kernel<K><<<c.grid, c.block, 0, stream>>>(s, out);
 }
 
 }  // namespace
 
-// Every array is int64 32-bit halves, contiguous: terms (lanes, n), x
-// (lanes), out (lanes); g threads a lane, a power of two from 1 to 32.
-// Returns cudaGetLastError() after the launch, cudaErrorInvalidValue for
-// another g.
-extern "C" int p2t_qe_horner(void* t_lo0, void* t_hi0, void* t_lo1, void* t_hi1,
-                             void* x_lo0, void* x_hi0, void* x_lo1, void* x_hi1,
+// desc (strided.cuh): the terms' four planes over the lanes' lead shape
+// (lanes = desc[0]), then x's four; steps: each terms plane's element
+// stride along n; out (lanes) int64 32-bit halves, contiguous; g threads a
+// lane, a power of two from 1 to 32.  Returns cudaGetLastError() after the
+// launch, cudaErrorInvalidValue for another g.
+extern "C" int p2t_qe_horner(const long long* desc, const long long* steps,
                              void* o_lo0, void* o_hi0, void* o_lo1, void* o_hi1,
-                             int lanes, int n, int g, void* stream) {
-  const int log_g = group_log(g);
+                             int n, int g, void* stream) {
+  const int log_g = power_log(g, MAX_GROUP);
   if (log_g < 0) return (int)cudaErrorInvalidValue;
-  if (lanes > 0) {
-    const ChainLaunch c = chain_launch(lanes, log_g);
+  const Strided<8> s = strided<8>(desc, 8);
+  if (s.n > 0) {
+    Steps st;
+    for (int k = 0; k < 4; ++k) st.d[k] = steps[k];
+    const Launch c = launch_shape(s.n << log_g);
     qe_horner_kernel<<<c.grid, c.block, 0, (cudaStream_t)stream>>>(
-        planes(t_lo0, t_hi0, t_lo1, t_hi1), planes(x_lo0, x_hi0, x_lo1, x_hi1),
-        planes(o_lo0, o_hi0, o_lo1, o_hi1), lanes, n, log_g);
+        s, st, planes(o_lo0, o_hi0, o_lo1, o_hi1), n, log_g);
   }
   return (int)cudaGetLastError();
 }
 
-// x (lanes), out (lanes, n); g as for p2t_qe_horner.  Returns
-// cudaGetLastError() after the launch.
-extern "C" int p2t_qe_powers(void* x_lo0, void* x_hi0, void* x_lo1, void* x_hi1,
-                             void* o_lo0, void* o_hi0, void* o_lo1, void* o_hi1,
-                             int lanes, int n, int g, void* stream) {
-  const int log_g = group_log(g);
+// desc: x's four planes over the lanes (lanes = desc[0]); out (lanes, n),
+// contiguous; g as for p2t_qe_horner.  Returns cudaGetLastError() after the
+// launch.
+extern "C" int p2t_qe_powers(const long long* desc, void* o_lo0, void* o_hi0,
+                             void* o_lo1, void* o_hi1, int n, int g,
+                             void* stream) {
+  const int log_g = power_log(g, MAX_GROUP);
   if (log_g < 0) return (int)cudaErrorInvalidValue;
-  if (lanes > 0 && n > 0) {
-    const ChainLaunch c = chain_launch(lanes, log_g);
+  const Strided<4> s = strided<4>(desc, 4);
+  if (s.n > 0 && n > 0) {
+    const Launch c = launch_shape(s.n << log_g);
     qe_powers_kernel<<<c.grid, c.block, 0, (cudaStream_t)stream>>>(
-        planes(x_lo0, x_hi0, x_lo1, x_hi1), planes(o_lo0, o_hi0, o_lo1, o_hi1),
-        lanes, n, log_g);
+        s, planes(o_lo0, o_hi0, o_lo1, o_hi1), n, log_g);
   }
   return (int)cudaGetLastError();
 }
 
-// a, out (elements).  Returns cudaGetLastError() after the launch.
-extern "C" int p2t_qe_inv(void* a_lo0, void* a_hi0, void* a_lo1, void* a_hi1,
-                          void* o_lo0, void* o_hi0, void* o_lo1, void* o_hi1,
-                          int elements, void* stream) {
-  if (elements > 0)
-    qe_inv_kernel<<<blocks(elements), THREADS, 0, (cudaStream_t)stream>>>(
-        planes(a_lo0, a_hi0, a_lo1, a_hi1), planes(o_lo0, o_hi0, o_lo1, o_hi1),
-        elements);
+// desc: a's four planes (elements = desc[0]); out (elements), contiguous;
+// per_thread elements a thread, 1, 2, 4 or 8.  Returns cudaGetLastError()
+// after the launch, cudaErrorInvalidValue for another per_thread.
+extern "C" int p2t_qe_inv(const long long* desc, void* o_lo0, void* o_hi0,
+                          void* o_lo1, void* o_hi1, int per_thread,
+                          void* stream) {
+  const int log_k = power_log(per_thread, MAX_PER_THREAD);
+  if (log_k < 0) return (int)cudaErrorInvalidValue;
+  const Strided<4> s = strided<4>(desc, 4);
+  const Planes out = planes(o_lo0, o_hi0, o_lo1, o_hi1);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (s.n > 0) {
+    switch (log_k) {
+      case 0: launch_inv<1>(s, out, st); break;
+      case 1: launch_inv<2>(s, out, st); break;
+      case 2: launch_inv<4>(s, out, st); break;
+      default: launch_inv<8>(s, out, st); break;
+    }
+  }
   return (int)cudaGetLastError();
 }

@@ -6,8 +6,13 @@
 // (there is no Pallas kernel for them):
 // - gl_mul_kernel: plonky2_tpu/fields/goldilocks.py mul (:293), a b;
 // - gl_mul_const_kernel: goldilocks.py mul_const (:297), a c for a constant
-//   c passed by value (c = 0 and c = 1 never launch: the wrapper's caller
-//   returns zeros or a);
+//   c passed by value (fields/goldilocks.mul_const launches nothing for c =
+//   0 and 1); and the bit-selected chains of plonky2_tpu/fri/verify.py,
+//   subgroup_x (:177-186) and cosetStart (:293-299), each one fused loop
+//   under jit: a c prod_i (bit_(off + i)(idx) ? t_i : 1), a optional, t a
+//   table of up to 64 constants by value (fields/goldilocks.mul_const_bits),
+//   one launch where the port's plain loop issues a product and a select a
+//   bit;
 // - qe_mul_kernel: plonky2_tpu/fields/goldilocks_ext.py mul (:59) and
 //   mul_add (:67), a b and a b + c over F_p[X]/(X^2 - 7);
 // - coset_interp_scan_kernel: the jax.lax.scan of
@@ -17,10 +22,10 @@
 //     ev' = ev term + (val_j w_j) pr,  pr' = pr term,
 //   each kept only where active[j, c], over the extension algebra
 //   (QE[Y]/(Y^2 - 7), ea_mul in goldilocks.cuh).
-// The port's plain versions are fields/goldilocks.py mul_plain and
-// mul_const_plain, fields/goldilocks_ext.py mul_plain and mul_add_plain, and
-// gates/gates.py coset_interp_scan_plain; the values are canonical, so the
-// kernels are bit-exact with them.
+// The port's plain versions are fields/goldilocks.py mul_plain,
+// mul_const_plain and mul_const_bits_plain, fields/goldilocks_ext.py
+// mul_plain and mul_add_plain, and gates/gates.py coset_interp_scan_plain;
+// the values are canonical, so the kernels are bit-exact with them.
 //
 // Layout: the port's representation, read where it lies.  A GL value is two
 // int64 planes of 32-bit halves (lo, hi), a QE value four, an EA value
@@ -31,7 +36,8 @@
 // 0 along a broadcast axis, over at most MAX_DIMS dimensions (size-1 axes
 // dropped, axes that every plane walks contiguously merged), in a host
 // array of int64 words that the C entry copies into the kernel's by-value
-// argument.  Outputs are one contiguous allocation of 2 or 4 planes.
+// argument (strided.cuh).  Outputs are one contiguous allocation of 2 or 4
+// planes.
 //
 // What bounds it on the H100: at the main path's shapes (B = 256) a
 // product has 256 to some 10^5 elements.  Bytes set the bound: a QE
@@ -39,7 +45,8 @@
 // against 4 to 16 dependent 64-bit products (8 IMADs each) a thread.  But
 // at these sizes a launch is a few microseconds of fixed cost, far above
 // either bound; what the kernels save is the ~146 int64 torch ops a product
-// that the plain version issues.  The scan is latency-bound: deg dependent
+// that the plain version issues, and the bit-selected product does a whole
+// chain of them in one launch.  The scan is latency-bound: deg dependent
 // steps of three EA products (12 QE products, about 3 dependent GL
 // products deep each) on B x C threads.  A simple kernel first: one thread
 // an element (a lane and chunk for the scan), 128-thread blocks.
@@ -48,62 +55,12 @@
 #include <stdint.h>
 
 #include "goldilocks.cuh"
+#include "strided.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int MAX_DIMS = 4;
-// Words of the host descriptor before the planes: n, ndim, dims[MAX_DIMS].
-constexpr int HEAD = 2 + MAX_DIMS;
-// Words a plane: its pointer, then its strides.
-constexpr int PLANE = 1 + MAX_DIMS;
-
-// NP input planes walked over one broadcast lead shape.
-template <int NP>
-struct Strided {
-  long long n;
-  int ndim;
-  long long dims[MAX_DIMS];
-  const long long* ptr[NP];
-  long long stride[NP][MAX_DIMS];
-};
-
-template <int NP>
-Strided<NP> strided(const long long* desc, int planes) {
-  Strided<NP> s;
-  s.n = desc[0];
-  s.ndim = (int)desc[1];
-  for (int d = 0; d < MAX_DIMS; ++d) s.dims[d] = desc[2 + d];
-  for (int k = 0; k < NP; ++k) {
-    const long long* p = desc + HEAD + PLANE * (k < planes ? k : 0);
-    s.ptr[k] = (const long long*)p[0];
-    for (int d = 0; d < MAX_DIMS; ++d) s.stride[k][d] = p[1 + d];
-  }
-  return s;
-}
-
-// The offsets of element e in each of the first `planes` planes.
-template <int NP>
-__device__ __forceinline__ void offsets(const Strided<NP>& s, long long e,
-                                        long long* off) {
-  long long coord[MAX_DIMS];
-#pragma unroll
-  for (int d = MAX_DIMS - 1; d >= 0; --d) {
-    if (d < s.ndim) {
-      coord[d] = e % s.dims[d];
-      e /= s.dims[d];
-    } else {
-      coord[d] = 0;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    long long o = 0;
-#pragma unroll
-    for (int d = 0; d < MAX_DIMS; ++d) o += coord[d] * s.stride[k][d];
-    off[k] = o;
-  }
-}
+constexpr int MAX_BITS = 64;  // the product by a constant's selected factors
 
 __device__ __forceinline__ u64 join(const long long* lo, const long long* hi,
                                     long long i, long long j) {
@@ -128,14 +85,41 @@ gl_mul_kernel(Strided<4> s, long long* out) {
   split(out, s.n, 0, e, gl_mul(a, b));
 }
 
-// planes: a.lo, a.hi; out (2, n)
+// The factors of a product by a constant that the bits of an index select:
+// t[i] where bit off + i of the index is set, 1 where it is clear, i < n.
+struct BitTable {
+  u64 t[MAX_BITS];
+  int off, n;
+};
+
+// out = a c prod_{i < n} (bit_(off + i)(idx) ? t_i : 1).  HAS_A: planes 0
+// and 1 are a (else a = 1); HAS_IDX: the next two planes are idx (lo, hi)
+// (else n = 0).  The selected factors go into two interleaved products, so
+// that the chain is about n / 2 products deep; a lane multiplies by 1 where
+// its bit is clear, so a warp does not diverge.  The table is read through
+// the by-value argument's constant bank (__grid_constant__: no local copy
+// for the loop's index).  out (2, n).
+template <bool HAS_A, bool HAS_IDX>
 __global__ void __launch_bounds__(THREADS)
-gl_mul_const_kernel(Strided<2> s, u64 c, long long* out) {
+gl_mul_const_kernel(Strided<4> s, u64 c, const __grid_constant__ BitTable bits,
+                    long long* out) {
   const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (e >= s.n) return;
-  long long o[2];
+  long long o[4];
   offsets(s, e, o);
-  split(out, s.n, 0, e, gl_mul(join(s.ptr[0], s.ptr[1], o[0], o[1]), c));
+  u64 v = HAS_A ? gl_mul(join(s.ptr[0], s.ptr[1], o[0], o[1]), c) : c;
+  if (HAS_IDX) {
+    constexpr int k = HAS_A ? 2 : 0;
+    const u64 idx = join(s.ptr[k], s.ptr[k + 1], o[k], o[k + 1]) >> bits.off;
+    u64 odd = 1;  // t[n] = 1 where n is odd (the C entry fills the table)
+#pragma unroll 1
+    for (int i = 0; i < bits.n; i += 2) {
+      v = gl_mul(v, (idx >> i) & 1 ? bits.t[i] : 1);
+      odd = gl_mul(odd, (idx >> (i + 1)) & 1 ? bits.t[i + 1] : 1);
+    }
+    v = gl_mul(v, odd);
+  }
+  split(out, s.n, 0, e, v);
 }
 
 __device__ __forceinline__ Qe load_qe(const long long* const* p,
@@ -239,11 +223,35 @@ extern "C" int p2t_gl_mul(const long long* desc, void* out, void* stream) {
   return (int)cudaGetLastError();
 }
 
-extern "C" int p2t_gl_mul_const(const long long* desc, unsigned long long c,
-                                void* out, void* stream) {
-  const Strided<2> s = strided<2>(desc, 2);
-  gl_mul_const_kernel<<<blocks(s.n), THREADS, 0, (cudaStream_t)stream>>>(
-      s, c, (long long*)out);
+// a c, or with n_bits > 0 a c times the constants of table (n_bits of them,
+// host memory, read before the launch returns) that bits off .. off + n_bits
+// - 1 of an index select: has_a says whether desc's planes 0 and 1 are a
+// (else a = 1); with n_bits > 0 the index's (lo, hi) planes follow.
+// cudaErrorInvalidValue for n_bits < 0, off < 0, off + n_bits > 64, or
+// neither a nor an index.
+extern "C" int p2t_gl_mul_const(const long long* desc, int has_a,
+                                unsigned long long c,
+                                const unsigned long long* table, int off,
+                                int n_bits, void* out, void* stream) {
+  if (n_bits < 0 || off < 0 || off + n_bits > MAX_BITS || (!has_a && !n_bits))
+    return (int)cudaErrorInvalidValue;
+  const Strided<4> s = strided<4>(desc, (has_a ? 2 : 0) + (n_bits ? 2 : 0));
+  BitTable bits;
+  bits.off = off;
+  bits.n = n_bits;
+  for (int i = 0; i < MAX_BITS; ++i) bits.t[i] = i < n_bits ? table[i] : 1;
+  const cudaStream_t st = (cudaStream_t)stream;
+  long long* o = (long long*)out;
+  if (!n_bits) {
+    gl_mul_const_kernel<true, false><<<blocks(s.n), THREADS, 0, st>>>(
+        s, c, bits, o);
+  } else if (has_a) {
+    gl_mul_const_kernel<true, true><<<blocks(s.n), THREADS, 0, st>>>(
+        s, c, bits, o);
+  } else {
+    gl_mul_const_kernel<false, true><<<blocks(s.n), THREADS, 0, st>>>(
+        s, c, bits, o);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -300,6 +300,27 @@ def mul_const_plain(a, c):
     return reduce_digits(mul_const_digits(a, c))
 
 
+def mul_const_bits(a, c, idx, off, table):
+    """a c times each python-int constant table[i] whose bit off + i of the
+    GL index ``idx`` is set, over the broadcast of a and idx; a may be None,
+    for 1.  One CUDA kernel launch on a CUDA tensor (any c, a table of 1 to
+    64 constants), the plain version on a CPU tensor."""
+    k = mul_kernels(idx[0])
+    if k is None:
+        return mul_const_bits_plain(a, c, idx, off, table)
+    return k.gl_mul_const(a, c, idx, off, table)
+
+
+def mul_const_bits_plain(a, c, idx, off, table):
+    """``mul_const_bits`` as the JAX package's loops compute it: a product
+    by a constant and a select a bit, then the product by c."""
+    bits = to_bits(idx, off + len(table))[off:]
+    prod = ones_like(idx[0]) if a is None else a
+    for i in reversed(range(len(table))):
+        prod = select(bits[i].bool(), mul_const_plain(prod, table[i]), prod)
+    return mul_const_plain(prod, c)
+
+
 def mul_add(a, b, c):
     return reduce_digits(add_to_digits(mul_digits(a, b), c))
 
@@ -413,6 +434,12 @@ def primitive_root_of_unity(n_log):
     for _ in range(TWO_ADICITY - n_log):
         res = (res * res) % P
     return res
+
+
+def bitrev_powers(base, n):
+    """[base^(2^(n-1-i)) for i < n]: the constants whose product over the
+    set bits i < n of an index is base^bitrev_n(index)."""
+    return [pow(base, 1 << (n - 1 - i), P) for i in range(n)]
 
 
 def two_adic_subgroup(n_log):

@@ -127,13 +127,10 @@ def verify_fri(spec, dev, challenges, verdict, query_shard=None):
     ``query_rounds(spec, query_shard)`` and only those rounds are checked;
     the verdict is then this shard's share, to be ANDed over the n shards."""
     start, stop = check_query_rounds(spec, dev, query_shard)
-    Q = stop - start
     if query_shard is not None:
         challenges = dict(challenges, query_indices=tuple(
             t[:, start:stop] for t in challenges["query_indices"]))
-    B = dev["pow_witness"][0].shape[0]
     lde_bits = spec.lde_bits
-    device = dev["init_siblings"].device
 
     verdict = verdict & _pow_ok(challenges["pow_response"], spec.pow_bits)
 
@@ -177,15 +174,10 @@ def verify_fri(spec, dev, challenges, verdict, query_shard=None):
         expected = _cap_lookup(caps[:, o], cap_index)
         verdict = verdict & torch.all(bn254.eq(roots[..., o, :], expected), dim=-1)
 
-    # --- subgroup_x = GENERATOR * root^bitrev(idx)
-    root = gl.primitive_root_of_unity(lde_bits)
-    prod = gl.ones((B, Q), device)
-    pw = root
-    for i in reversed(range(lde_bits)):
-        term = gl.mul_const(prod, pw)
-        prod = gl.select(bits[i].bool(), term, prod)
-        pw = (pw * pw) % gl.P
-    subgroup_x = gl.mul_const(prod, gl.MULTIPLICATIVE_GROUP_GENERATOR)
+    # --- subgroup_x = GENERATOR * root^bitrev(idx), one launch
+    subgroup_x = gl.mul_const_bits(
+        None, gl.MULTIPLICATIVE_GROUP_GENERATOR, x_index, 0,
+        gl.bitrev_powers(gl.primitive_root_of_unity(lde_bits), lde_bits))
 
     # --- combine initial
     zeta = challenges["zeta"]
@@ -214,7 +206,8 @@ def verify_fri(spec, dev, challenges, verdict, query_shard=None):
         a_n = qe.mul(a_n, alpha)
     old_eval = qe.add(qe.mul(_bcast_qe(a_n), total), qe.mul(num1, qe.inv(den1)))
 
-    # --- reduction steps
+    # --- reduction steps; round j's coset starts at bit ``off`` of x_index
+    off = 0
     for j, arity_bits in enumerate(spec.reduction_arity_bits):
         arity = 1 << arity_bits
         within_bits = bits[:arity_bits]
@@ -227,7 +220,7 @@ def verify_fri(spec, dev, challenges, verdict, query_shard=None):
                           for c in comp) for comp in evals)
         verdict = verdict & torch.all(qe.eq(sel, old_eval), dim=-1)
 
-        old_eval = _compute_evaluation(subgroup_x, within_bits, arity_bits,
+        old_eval = _compute_evaluation(subgroup_x, x_index, off, arity_bits,
                                        evals, challenges["fri_betas"][j])
 
         # Merkle check of the step evals against commit cap j
@@ -243,6 +236,7 @@ def verify_fri(spec, dev, challenges, verdict, query_shard=None):
         for _ in range(arity_bits):
             subgroup_x = gl.mul(subgroup_x, subgroup_x)
         bits = coset_bits
+        off += arity_bits
 
     # --- final polynomial check
     fp_b = qe.index(dev["final_poly"], (Ellipsis, None, slice(None)))  # (B,1,F)
@@ -250,9 +244,11 @@ def verify_fri(spec, dev, challenges, verdict, query_shard=None):
     return verdict & torch.all(qe.eq(old_eval, acc), dim=-1)
 
 
-def _compute_evaluation(x, within_bits, arity_bits, evals, beta):
+def _compute_evaluation(x, x_index, off, arity_bits, evals, beta):
     """Barycentric interpolation of the coset evals at beta, stacked over the
-    coset axis, with the fallback for beta on a coset point."""
+    coset axis, with the fallback for beta on a coset point.  The coset's
+    index within the round is bits off .. off + arity_bits - 1 of
+    x_index."""
     arity = 1 << arity_bits
     g = gl.primitive_root_of_unity(arity_bits)
     g_inv = pow(g, arity - 1, gl.P)
@@ -266,14 +262,9 @@ def _compute_evaluation(x, within_bits, arity_bits, evals, beta):
     inv_perm[perm] = np.arange(arity)
     y_st = qe.index(evals, (Ellipsis, gl.device_table(inv_perm, device)))
 
-    # cosetStart = x * gInv^bitrev(within_idx)
-    start = gl.ones(within_bits[0].shape, device)
-    pw = g_inv
-    for i in reversed(range(arity_bits)):
-        term = gl.mul_const(start, pw)
-        start = gl.select(within_bits[i].bool(), term, start)
-        pw = (pw * pw) % gl.P
-    coset_start = gl.mul(start, x)
+    # cosetStart = x * gInv^bitrev(within_idx), one launch
+    coset_start = gl.mul_const_bits(x, 1, x_index, off,
+                                    gl.bitrev_powers(g_inv, arity_bits))
 
     g_pows = gl.const_array([pow(g, i, gl.P) for i in range(arity)])
     cs_b = qe.index(qe.from_base(coset_start), (Ellipsis, None))   # (B, Q, 1)

@@ -7,32 +7,44 @@ They replace the JAX package's ``jax.lax.scan`` chains of
 port's plain versions (``fields/goldilocks_ext.horner_plain``,
 ``powers_plain``, ``inv_plain``) unroll into a Python loop of several dozen
 int64 torch ops a Goldilocks product.  Horner and powers split each lane's
-chain over a group of G threads, G from ``chain_group``; the inverse runs
-one thread an element (see the source's header for what bounds them).
+chain over a group of G threads, G from ``chain_group``; the inverse
+inverts a warp's elements at once (batch inversion), K elements a thread,
+K from ``inv_per_thread`` (see the source's header for what bounds them).
 
 A QE value is the port's four int64 planes of 32-bit halves, passed to the
-kernel as they are.  Each wrapper broadcasts its operands to the lead shape
-and makes each plane contiguous (a copy only where a plane is broadcast or
-strided), allocates its output with ``torch.empty`` and launches on the
-current stream: nothing is made from host data and nothing waits for the
-device, so the launches can be captured in the compiled verifier's CUDA
-graph.  They take CUDA tensors only and raise ``build.KernelError`` for any
-other device; ``fields/goldilocks_ext`` dispatches to the plain versions for
-CPU tensors.  ``horner.launches``, ``powers.launches`` and ``inv.launches``
-count kernel launches.
+kernel as they are.  The kernels read each input plane where it lies, by its
+element strides over the broadcast lead shape (``goldilocks_mul.descriptor``,
+0 along a broadcast axis; Horner's terms with a stride along n as well), so
+a broadcast or strided operand costs no copy.  Each wrapper allocates its
+output with ``torch.empty`` and launches on the current stream: nothing is
+made from host data and nothing waits for the device, so the launches can
+be captured in the compiled verifier's CUDA graph.  They take CUDA tensors
+only and raise ``build.KernelError`` for any other device;
+``fields/goldilocks_ext`` dispatches to the plain versions for CPU tensors.
+``horner.launches``, ``powers.launches`` and ``inv.launches`` count kernel
+launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import build
+from .goldilocks_mul import _descriptor, descriptor
 
 MAX_GROUP = 32
 # Threads a chain launch may take before the groups narrow: the card holds
 # far more, but past this many the extra products for x^G and x^j cost more
 # than the shorter chain saves (tuned on the H100, PERF.md).
 THREAD_BUDGET = 32768
+# The inverse's elements a thread, and the threads a launch may take before
+# a thread takes more: a warp's one inversion is spread over 32 K elements,
+# but fewer warps hide less of a warp's latency (tuned on the H100,
+# PERF.md).
+INV_PER_THREAD = (1, 2, 4, 8)
+INV_THREAD_BUDGET = 32768
 
 
 def _planes(a):
@@ -53,11 +65,6 @@ def _check(planes, what):
             raise ValueError(f"{what}: every plane must be int64 on "
                              f"{device}, got {t.dtype} on {t.device}")
     return device
-
-
-def _fit(planes, shape):
-    """Each plane broadcast to ``shape`` and contiguous."""
-    return [t.expand(shape).contiguous() for t in planes]
 
 
 def _empty(shape, device):
@@ -101,24 +108,33 @@ def _group(lanes, n, group):
     return g
 
 
+def inv_per_thread(elements):
+    """The inverse's elements a thread: the fewest of INV_PER_THREAD with
+    which the launch takes at most INV_THREAD_BUDGET threads."""
+    for k in INV_PER_THREAD:
+        if -(-elements // k) <= INV_THREAD_BUDGET:
+            return k
+    return INV_PER_THREAD[-1]
+
+
 def horner(terms, x, group=None):
     """sum_i terms[..., i] x^i: terms QE (..., n), x QE broadcastable to
     the lead shape -> QE of shape broadcast(terms' lead, x).  ``group``:
     the threads a lane, ``chain_group``'s by default."""
     tp, xp = _planes(terms), _planes(x)
     device = _check(tp + xp, "QE Horner")
-    n = tp[0].shape[-1]
-    lead = torch.broadcast_shapes(*(t.shape[:-1] for t in tp),
-                                  *(t.shape for t in xp))
-    tp = _fit(tp, lead + (n,))
-    xp = _fit(xp, lead)
+    n = torch.broadcast_shapes(*(t.shape[-1:] for t in tp))[0]
+    lead, lanes, desc = descriptor(
+        [t.shape[:-1] for t in tp] + [t.shape for t in xp],
+        [t.stride()[:-1] for t in tp] + [t.stride() for t in xp],
+        _ptrs(tp + xp), "QE Horner")
+    steps = (ctypes.c_longlong * 4)(
+        *(0 if t.shape[-1] == 1 else t.stride(-1) for t in tp))
     out = _empty(lead, device)
-    lanes = xp[0].numel()
     group = _group(lanes, n, group)
     with torch.cuda.device(device):  # the launch goes to the current device
         rc = build.library().p2t_qe_horner(
-            *_ptrs(tp), *_ptrs(xp), *_ptrs(out), lanes, n, group,
-            build.stream_handle(device))
+            desc, steps, *_ptrs(out), n, group, build.stream_handle(device))
     build.check(rc, "qe_horner launch")
     horner.launches += 1
     return _qe(out)
@@ -129,31 +145,31 @@ def powers(x, n, group=None):
     threads a lane, ``chain_group``'s by default."""
     xp = _planes(x)
     device = _check(xp, "QE powers")
-    lead = torch.broadcast_shapes(*(t.shape for t in xp))
-    xp = _fit(xp, lead)
+    lead, lanes, desc = _descriptor(xp, "QE powers")
     out = _empty(lead + (n,), device)
-    lanes = xp[0].numel()
     group = _group(lanes, n, group)
     with torch.cuda.device(device):
         rc = build.library().p2t_qe_powers(
-            *_ptrs(xp), *_ptrs(out), lanes, n, group,
-            build.stream_handle(device))
+            desc, *_ptrs(out), n, group, build.stream_handle(device))
     build.check(rc, "qe_powers launch")
     powers.launches += 1
     return _qe(out)
 
 
-def inv(a):
-    """a^-1 elementwise, 0 for 0: QE (...) -> QE (...)."""
+def inv(a, per_thread=None):
+    """a^-1 elementwise, 0 for 0: QE (...) -> QE (...).  ``per_thread``:
+    the elements a thread, ``inv_per_thread``'s by default."""
+    if per_thread is not None and per_thread not in INV_PER_THREAD:
+        raise ValueError(f"the inverse's elements a thread must be one of "
+                         f"{INV_PER_THREAD}, got {per_thread}")
     ap = _planes(a)
     device = _check(ap, "QE inverse")
-    shape = torch.broadcast_shapes(*(t.shape for t in ap))
-    ap = _fit(ap, shape)
-    out = _empty(shape, device)
+    lead, elements, desc = _descriptor(ap, "QE inverse")
+    k = inv_per_thread(elements) if per_thread is None else per_thread
+    out = _empty(lead, device)
     with torch.cuda.device(device):
         rc = build.library().p2t_qe_inv(
-            *_ptrs(ap), *_ptrs(out), ap[0].numel(),
-            build.stream_handle(device))
+            desc, *_ptrs(out), k, build.stream_handle(device))
     build.check(rc, "qe_inv launch")
     inv.launches += 1
     return _qe(out)

@@ -4,6 +4,11 @@ kernels in ``csrc/goldilocks_mul.cu``.
 - ``gl_mul(a, b)`` and ``gl_mul_const(a, c)``: Goldilocks products (JAX:
   ``plonky2_tpu/fields/goldilocks.py`` ``mul`` and ``mul_const``), behind
   ``fields/goldilocks.mul`` and ``mul_const``;
+- ``gl_mul_const(a, c, idx, off, table)``: a c times the constants of a
+  table that the bits of an index select, in one launch (JAX: the
+  ``subgroup_x`` and ``cosetStart`` loops of ``plonky2_tpu/fri/verify.py``,
+  a product by a constant and a select a bit), behind
+  ``fields/goldilocks.mul_const_bits``;
 - ``qe_mul(a, b[, c])``: the quadratic-extension product a b, or a b + c
   (JAX: ``plonky2_tpu/fields/goldilocks_ext.py`` ``mul`` and ``mul_add``),
   behind ``fields/goldilocks_ext.mul`` and ``mul_add``;
@@ -43,7 +48,8 @@ import torch
 from ..fields.goldilocks import P
 from . import build
 
-MAX_DIMS = 4  # csrc/goldilocks_mul.cu MAX_DIMS
+MAX_DIMS = 4  # csrc/strided.cuh MAX_DIMS
+MAX_BITS = 64  # csrc/goldilocks_mul.cu MAX_BITS
 
 
 def broadcast_layout(shapes, strides):
@@ -87,21 +93,27 @@ def _check(planes, what):
     return device
 
 
-def _descriptor(planes, what):
-    """(lead shape, element count, the host words of csrc/goldilocks_mul.cu's
-    descriptor: n, ndim, dims, then each plane's pointer and strides)."""
-    lead, dims, strides = broadcast_layout([t.shape for t in planes],
-                                           [t.stride() for t in planes])
+def descriptor(shapes, strides, ptrs, what):
+    """(lead shape, element count, the host words of csrc/strided.cuh's
+    descriptor: n, ndim, dims, then each plane's pointer and strides) of
+    planes given by their shapes, element strides and data pointers."""
+    lead, dims, merged = broadcast_layout(shapes, strides)
     if len(dims) > MAX_DIMS:
         raise ValueError(f"{what}: {len(dims)} dimensions after merging "
-                         f"(shapes {[tuple(t.shape) for t in planes]}), the "
+                         f"(shapes {[tuple(s) for s in shapes]}), the "
                          f"kernel takes {MAX_DIMS}")
     pad = MAX_DIMS - len(dims)
     n = math.prod(lead)
     words = [n, len(dims), *dims, *([1] * pad)]
-    for t, st in zip(planes, strides):
-        words += [t.data_ptr(), *st, *([0] * pad)]
+    for ptr, st in zip(ptrs, merged):
+        words += [ptr, *st, *([0] * pad)]
     return lead, n, (ctypes.c_longlong * len(words))(*words)
+
+
+def _descriptor(planes, what):
+    """``descriptor`` of tensors over their broadcast."""
+    return descriptor([t.shape for t in planes], [t.stride() for t in planes],
+                      [t.data_ptr() for t in planes], what)
 
 
 def _launch(entry, planes, n_out, what, *args):
@@ -127,11 +139,29 @@ def gl_mul(a, b):
     return out
 
 
-def gl_mul_const(a, c):
-    """a c for a GL value a and a python-int constant c (by value)."""
-    out, launched = _launch("p2t_gl_mul_const", [a[0], a[1]], 2,
+def gl_mul_const(a, c, idx=None, off=0, table=()):
+    """a c for a GL value a and a python-int constant c (by value).  With a
+    GL index ``idx`` and a ``table`` of 1 to 64 python ints, a c times each
+    table[i] whose bit off + i of idx is set (off + len(table) <= 64), over
+    the broadcast of a and idx; a may then be None, for 1."""
+    planes = [] if a is None else [a[0], a[1]]
+    n_bits = len(table)
+    if idx is None:
+        if a is None or n_bits:
+            raise ValueError("product by a constant: a table needs an index, "
+                             "and no index needs a")
+        words = None
+    else:
+        if not 1 <= n_bits or off < 0 or off + n_bits > MAX_BITS:
+            raise ValueError(f"product by a constant: bits {off} to "
+                             f"{off + n_bits - 1} of the index, the kernel "
+                             f"takes 1 to {MAX_BITS} bits below bit {MAX_BITS}")
+        planes += [idx[0], idx[1]]
+        words = (ctypes.c_uint64 * n_bits)(*(int(t) % P for t in table))
+    out, launched = _launch("p2t_gl_mul_const", planes, 2,
                             "Goldilocks product by a constant",
-                            ctypes.c_uint64(int(c) % P))
+                            int(a is not None), ctypes.c_uint64(int(c) % P),
+                            words, off, n_bits)
     gl_mul_const.launches += launched
     return out
 

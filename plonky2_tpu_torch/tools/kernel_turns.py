@@ -15,17 +15,24 @@ four oracles at once); times them at each, in turns A, CIOS, CIOS, A, and
 the transcript kernel at B=256 on the step schedule, each over 20 launches
 by CUDA events after a warm-up; times the QE Horner and powers kernels
 (``csrc/goldilocks_ext.cu``) at each of their calls in a step verification
-at B=256 and powers also at 7168 x 32, each in a CUDA graph of 20 launches
-(the mean of 3 replays), since one launch takes a few microseconds; digests
-each kernel's SASS (``cuobjdump -sass``; equal digests mean the same machine
-code), the transcript's output and the chains' outputs; and keeps ``ptxas
--v``'s lines of the build.  The same seed gives every process the same
-inputs, so the transcript and chain outputs of all processes must be equal.
+at B=256 and powers also at 7168 x 32, the QE inverse at its three call
+shapes, and the product by a constant (``csrc/goldilocks_mul.cu``) at its
+plain form's largest call and at FRI's three bit-selected calls (subgroup_x
+and each round's cosetStart: one launch of ``goldilocks.mul_const_bits``
+where the tree has it, else the loop of a product by a constant and a select
+a bit that it replaced), each in a CUDA graph of 20 calls (the mean of 3
+replays), since one launch takes a few microseconds; digests each kernel's
+SASS (``cuobjdump -sass``; equal digests mean the same machine code), the
+transcript's output and the chains' and products' outputs; and keeps
+``ptxas -v``'s lines of the build.  The same seed gives every process the
+same inputs, so the transcript, chain and product outputs of all processes
+must be equal.
 
 Prints one JSON line per process, then a summary: per tree, each kernel's
 mean time (keys ``name@lanes`` for the BN254 kernels, ``name@lanesxn`` for
-the chains), SASS digest and instruction count, and its time over tree 0's,
-with the card's name and power limit.
+the chains, ``qe_inv@shape`` and ``name@shape`` for the products), SASS
+digest and instruction count, the sum over one step verification's calls,
+and its time over tree 0's, with the card's name and power limit.
 Exits 1 if a check fails.  Needs one CUDA device.
 """
 
@@ -57,12 +64,25 @@ HORNER_SHAPES = [((256, 63), (), 1), ((256, 4, 4), (), 1),
                  ((256, 258), (256,), 1), ((256, 2), (256,), 1),
                  ((256, 1, 32), (256, 28), 1)]
 POWERS_SHAPES = [(256, 258, 1), (256, 2, 1), (7168, 32, 0)]
+# The QE inverse's calls in a step verification at B=256 (chip_smoke
+# .INV_CALLS), each with its calls a verification.
+INV_SHAPES = [((256,), 1), ((256, 28), 2), ((256, 28, 16), 4)]
+# FRI's bit-selected products at step B=256 (256 x 28 query indices of 16
+# bits; arity bits [4, 4]): (name, a given, c, off, bits), a call each.
+LDE_BITS = 16
+BITS_CALLS = [("subgroup_x", False, 7, 0, LDE_BITS),
+              ("coset_start_0", True, 1, 0, 4),
+              ("coset_start_1", True, 1, 4, 4)]
+# The plain product by a constant at its largest call, (256, 44) by DTH_ROOT.
+CONST_SHAPE = (256, 44)
 # kernel key -> a substring of its mangled name only it has
 KERNELS = {"poseidon_bn254": "poseidon_bn254_kernel",
            "poseidon_bn254_cios": "poseidon_bn254_cios_kernel",
            "poseidon_gl_transcript": "transcript_kernel",
            "qe_horner": "qe_horner_kernel",
-           "qe_powers": "qe_powers_kernel"}
+           "qe_powers": "qe_powers_kernel",
+           "qe_inv": "qe_inv_kernel",
+           "gl_mul_const": "gl_mul_const_kernel"}
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 
 
@@ -104,7 +124,8 @@ def summarize(runs):
         t["ms_one_verification"] = {
             name: sum(t["ms"][key] * calls for key, calls in keys.items()
                       if key in t["ms"])
-            for name, keys in chain_calls().items()}
+            for name, keys in chain_calls().items()
+            if any(key in t["ms"] for key in keys)}
     base = trees[min(trees)]["ms"]
     for t in trees.values():
         t["over_tree_0"] = {k: v / base[k] for k, v in t["ms"].items()}
@@ -125,7 +146,45 @@ def chain_calls():
         horner[key] = horner.get(key, 0) + calls
     return {"qe_horner": horner,
             "qe_powers": {f"qe_powers@{lanes}x{n}": calls
-                          for lanes, n, calls in POWERS_SHAPES}}
+                          for lanes, n, calls in POWERS_SHAPES},
+            "qe_inv": {inv_key(shape): calls for shape, calls in INV_SHAPES},
+            "gl_mul_const_bits": {f"{name}@256x28": 1
+                                  for name, *_ in BITS_CALLS}}
+
+
+def inv_key(shape):
+    """The timing key of an inverse call: ``qe_inv@256x28x16``."""
+    return "qe_inv@" + "x".join(map(str, shape))
+
+
+def bits_table(gl, name, n):
+    """The constants of a BITS_CALLS call (``fri/verify.py``): the root of
+    unity of order 2^n (subgroup_x) or its inverse (cosetStart) to the powers
+    2^(n-1-i), i < n."""
+    base = gl.primitive_root_of_unity(n)
+    if name != "subgroup_x":
+        base = pow(base, (1 << n) - 1, gl.P)
+    return [pow(base, 1 << (n - 1 - i), gl.P) for i in range(n)]
+
+
+def bits_call(gl, a, c, idx, bits, off, table):
+    """FRI's bit-selected product in the tree's own form: one launch of
+    ``mul_const_bits`` where the tree has it, else the loop it replaced (a
+    product by a constant and a select a bit, on ``bits`` made before)."""
+    import torch
+
+    if hasattr(gl, "mul_const_bits"):
+        return lambda: gl.mul_const_bits(a, c, idx, off, table)
+
+    def loop():
+        prod = (torch.ones_like(bits[0]), torch.zeros_like(bits[0]))
+        for i in reversed(range(len(table))):
+            prod = gl.select(bits[off + i].bool(),
+                             gl.mul_const(prod, table[i]), prod)
+        if a is not None:
+            prod = gl.mul(prod, a)
+        return gl.mul_const(prod, c)
+    return loop
 
 
 def turn_order(n_trees):
@@ -233,6 +292,28 @@ def _child():
         t.cpu().numpy().tobytes() for out in chain_out for c in out
         for t in c)).hexdigest()[:16]
 
+    prod_out = []
+    for shape, _ in INV_SHAPES:
+        a = qe_vals(shape)
+        prod_out.append(kq.inv(a))
+        ms[inv_key(shape)] = [graph_ms(lambda: kq.inv(a))]
+    idx = gl.split_u64(rng.integers(0, 1 << LDE_BITS, size=(256, 28),
+                                    dtype=np.uint64), dev)
+    bits = gl.to_bits(idx, 64)
+    x = qe_vals((256, 28))[0]
+    for name, has_a, c, off, n in BITS_CALLS:
+        fn = bits_call(gl, x if has_a else None, c, idx, bits, off,
+                       bits_table(gl, name, n))
+        prod_out.append(fn())
+        ms[f"{name}@256x28"] = [graph_ms(fn)]
+    a44 = qe_vals(CONST_SHAPE)[0]
+    prod_out.append(gl.mul_const(a44, gl.DTH_ROOT))
+    ms["gl_mul_const@256x44"] = [graph_ms(
+        lambda: gl.mul_const(a44, gl.DTH_ROOT))]
+    prod_digest = hashlib.sha256(b"".join(
+        t.cpu().numpy().tobytes()
+        for t in torch.utils._pytree.tree_leaves(prod_out))).hexdigest()[:16]
+
     cuobjdump = (shutil.which("cuobjdump")
                  or "/usr/local/cuda/bin/cuobjdump")
     lib = build.BUILD_DIR / build.LIB_NAME
@@ -242,6 +323,7 @@ def _child():
              if "registers" in line or "spill" in line or "==" in line]
     print(json.dumps({"ms": ms, "transcript_digest": digest,
                       "chain_digest": chain_digest,
+                      "product_digest": prod_digest,
                       "sass": sass_digests(sass), "ptxas": ptxas}))
 
 
@@ -274,7 +356,7 @@ def main(argv=None):
         run = {"tree": i, **json.loads(proc.stdout.strip().splitlines()[-1])}
         print(json.dumps(run))
         runs.append(run)
-    for key in ("transcript_digest", "chain_digest"):
+    for key in ("transcript_digest", "chain_digest", "product_digest"):
         digests = {run[key] for run in runs}
         if len(digests) != 1:
             print(f"kernel_turns: the outputs differ ({key}): {digests}",

@@ -73,3 +73,25 @@ def test_chain_calls_weigh_one_step_verification():
                     "qe_powers@256x258": [2.0], "qe_powers@7168x32": [5.0]}}]
     got = kt.summarize(runs)[0]["ms_one_verification"]
     assert got == {"qe_horner": 5.0, "qe_powers": 2.0}
+
+
+def test_chain_calls_weigh_the_inverse_and_the_bit_selected_products():
+    calls = kt.chain_calls()
+    assert calls["qe_inv"] == {"qe_inv@256": 1, "qe_inv@256x28": 2,
+                               "qe_inv@256x28x16": 4}
+    assert sum(calls["gl_mul_const_bits"].values()) == 3
+    runs = [{"tree": 0, "sass": {},
+             "ms": {"qe_inv@256": [1.0], "qe_inv@256x28": [2.0],
+                    "qe_inv@256x28x16": [3.0], "subgroup_x@256x28": [4.0],
+                    "coset_start_0@256x28": [5.0],
+                    "coset_start_1@256x28": [6.0]}}]
+    got = kt.summarize(runs)[0]["ms_one_verification"]
+    assert got == {"qe_inv": 17.0, "gl_mul_const_bits": 15.0}
+
+
+def test_bits_table_matches_the_fri_loops():
+    from plonky2_tpu_torch.fields import goldilocks as gl
+    root = gl.primitive_root_of_unity(16)
+    assert kt.bits_table(gl, "subgroup_x", 16) == gl.bitrev_powers(root, 16)
+    g_inv = pow(gl.primitive_root_of_unity(4), 15, gl.P)
+    assert kt.bits_table(gl, "coset_start_1", 4) == gl.bitrev_powers(g_inv, 4)

@@ -458,3 +458,164 @@ def test_coset_gate_on_the_card_matches_the_cpu(dev, fixture):
     want = gate.eval(_cpu(consts), _cpu(wires), _cpu(pih))
     torch.cuda.synchronize()
     assert n == 1 and _qe_equal(_cpu(got), want)
+
+
+# -- the batch inverse and the bit-selected product by a constant -----------
+
+def _inv_zeros(n):
+    """0 at the first element, lane 31, the last, and from 512 elements on
+    all of [256, 512): a whole warp at every K elements a thread."""
+    zeros = {0, min(31, n - 1), n - 1}
+    if n >= 512:
+        zeros.update(range(256, 512))
+    return sorted(zeros)
+
+
+def _inv_vals(shape, seed):
+    vals = _qe_vals(shape, seed)
+    for v in vals:
+        v.reshape(-1)[_inv_zeros(v.size)] = 0
+    return vals
+
+
+# Element counts around a warp's 32 K elements, and the main path's
+# largest; the inverse at every K and at the wrapper's own.
+@pytest.mark.parametrize("k", [None, 1, 2, 4, 8])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 255, 257, 7168])
+def test_qe_inv_kernel_batch_matches_plain(dev, n, k):
+    a = _qe(_inv_vals((n,), seed=n), dev)
+    got, launched = _counted(kq.inv, lambda: kq.inv(a, per_thread=k))
+    want = qe.inv_plain(a)
+    torch.cuda.synchronize()
+    assert launched == 1 and _qe_equal(got, want)
+    zeros = torch.as_tensor(_inv_zeros(n), device=dev)
+    assert not any(t[zeros].any() for c in got for t in c)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_qe_inv_kernel_at_the_largest_main_path_shape(dev, k):
+    a = _qe(_inv_vals((256, 28, 16), seed=k), dev)
+    assert _qe_equal(kq.inv(a, per_thread=k), qe.inv_plain(a))
+
+
+def _views_qe(dev):
+    """(name, strided or broadcast QE value) at the inverse's shapes."""
+    def v(shape, seed):
+        return _qe(_qe_vals(shape, seed), dev)
+
+    return [
+        ("transposed", _strided(v((28, 256), 60))),
+        ("broadcast", tuple(tuple(t.expand(256, 28, 16) for t in c)
+                            for c in v((256, 28, 1), 61))),
+        ("even columns", tuple(tuple(t[..., ::2] for t in c)
+                               for c in v((256, 28, 32), 62))),
+    ]
+
+
+@pytest.mark.parametrize("view", range(3))
+def test_qe_inv_kernel_reads_views_as_contiguous_copies(dev, view):
+    name, a = _views_qe(dev)[view]
+    dense = tuple(tuple(t.contiguous() for t in c) for c in a)
+    got = kq.inv(a)
+    assert _qe_equal(got, kq.inv(dense)), name
+    assert _qe_equal(got, qe.inv_plain(a)), name
+
+
+def test_qe_chain_kernels_read_broadcast_operands_in_place(dev):
+    """x and the terms broadcast (stride 0) and sliced, against contiguous
+    copies: the chains read every operand where it lies."""
+    terms = _qe(_qe_vals((256, 1, 32), seed=63), dev)
+    x = _qe(_qe_vals((256, 28), seed=64), dev)
+    wide = tuple(tuple(t.expand(256, 28, 32).contiguous() for t in c)
+                 for c in terms)
+    assert _qe_equal(kq.horner(terms, x), kq.horner(wide, x))
+    terms = _qe(_qe_vals((256, 290), seed=65), dev)
+    sliced = tuple(tuple(t[:, 1:259] for t in c) for c in terms)
+    scalar = _qe(_qe_vals((), seed=66), dev)
+    dense = tuple(tuple(t.contiguous() for t in c) for c in sliced)
+    full = tuple(tuple(t.expand(256).contiguous() for t in c) for c in scalar)
+    assert _qe_equal(kq.horner(sliced, scalar), kq.horner(dense, full))
+    assert _qe_equal(kq.horner(sliced, scalar), qe.horner_plain(dense, full))
+    x = _qe(_qe_vals((2, 256), seed=67), dev)
+    row = tuple(tuple(t[1] for t in c) for c in x)
+    assert _qe_equal(kq.powers(row, 33), kq.powers(
+        tuple(tuple(t.contiguous() for t in c) for c in row), 33))
+
+
+def _index(shape, bits, seed, dev):
+    rng = np.random.default_rng(seed)
+    top = gl.P if bits == 64 else 1 << bits
+    v = np.array(rng.integers(0, top, size=shape, dtype=np.uint64))
+    v.reshape(-1)[:min(3, v.size)] = [0, 1, top - 1][:min(3, v.size)]
+    return _gl(v, dev)
+
+
+def _step_bits_calls():
+    """FRI's bit-selected products at step: (name, a given, c, off, table)."""
+    spec = load_circuit_spec("testdata/step/common_circuit_data.json")
+    lde = spec.lde_bits
+    calls = [("subgroup_x", False, gl.MULTIPLICATIVE_GROUP_GENERATOR, 0,
+              gl.bitrev_powers(gl.primitive_root_of_unity(lde), lde))]
+    off = 0
+    for j, bits in enumerate(spec.reduction_arity_bits):
+        g_inv = pow(gl.primitive_root_of_unity(bits), (1 << bits) - 1, gl.P)
+        calls.append((f"cosetStart {j}", True, 1, off,
+                      gl.bitrev_powers(g_inv, bits)))
+        off += bits
+    return spec, calls
+
+
+def _bits_equal(got, want):
+    return all(g.shape == w.shape and torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("call", range(3))
+@pytest.mark.parametrize("lanes", [256 * 28, 1, 31, 33, 255, 257])
+def test_mul_const_bits_kernel_matches_plain_at_fri_calls(dev, lanes, call):
+    spec, calls = _step_bits_calls()
+    _, has_a, c, off, table = calls[call]
+    idx = _index((lanes,), spec.lde_bits, seed=lanes + call, dev=dev)
+    a = _gl(_gl_vals((lanes,), seed=70 + call), dev) if has_a else None
+    got, n = _counted(km.gl_mul_const,
+                      lambda: gl.mul_const_bits(a, c, idx, off, table))
+    want = gl.mul_const_bits_plain(a, c, idx, off, table)
+    torch.cuda.synchronize()
+    assert n == 1 and _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("off,bits", [(0, 64), (48, 16), (3, 5), (63, 1),
+                                      (0, 1)])
+@pytest.mark.parametrize("c", [0, 1, 7, gl.DTH_ROOT])
+def test_mul_const_bits_kernel_takes_any_bits_of_64_bit_indices(dev, off,
+                                                               bits, c):
+    rng = np.random.default_rng(off + bits)
+    table = [int(t) for t in rng.integers(0, gl.P, size=bits,
+                                          dtype=np.uint64)]
+    idx = _index((257,), 64, seed=off, dev=dev)
+    a = _gl(_gl_vals((257,), seed=bits), dev)
+    for x in (a, None):
+        got = gl.mul_const_bits(x, c, idx, off, table)
+        assert _bits_equal(got, gl.mul_const_bits_plain(x, c, idx, off,
+                                                        table))
+
+
+def test_mul_const_bits_kernel_reads_views_as_contiguous_copies(dev):
+    _, calls = _step_bits_calls()
+    _, _, c, off, table = calls[2]
+    idx = tuple(t.T for t in _index((28, 256), 16, seed=80, dev=dev))
+    a = tuple(t.T for t in _gl(_gl_vals((28, 256), seed=81), dev))
+    dense = (tuple(t.contiguous() for t in a),
+             tuple(t.contiguous() for t in idx))
+    got = gl.mul_const_bits(a, c, idx, off, table)
+    assert _bits_equal(got, gl.mul_const_bits(dense[0], c, dense[1], off,
+                                              table))
+    assert _bits_equal(got, gl.mul_const_bits_plain(a, c, idx, off, table))
+    col = _gl(_gl_vals((256, 1), seed=82), dev)
+    got = gl.mul_const_bits(col, 5, idx, 0, table)
+    assert got[0].shape == (256, 28)
+    assert _bits_equal(got, gl.mul_const_bits_plain(col, 5, idx, 0, table))
+    empty = _index((256, 0), 16, seed=83, dev=dev)
+    got, n = _counted(km.gl_mul_const,
+                      lambda: gl.mul_const_bits(None, 7, empty, 0, table))
+    assert n == 0 and got[0].shape == (256, 0)
