@@ -40,10 +40,14 @@
    cosetStart calls, odd lane counts, 64-bit indices, bits up to 63, odd
    and full tables and strided and broadcast operands, and the
    coset-interpolation scan on both fixtures' gates at B=256 and odd lane
-   counts against its plain version on CPU copies; each is timed at its
+   counts, with the edge values in every coordinate and points equal to a
+   domain point (a zero t), against its plain version on CPU copies; each
+   is timed at its
    largest main-path shape in a CUDA graph of 20 launches beside its plain
    version (every product plain), and the bit-selected product at its 3
-   calls beside the loop it replaced;
+   calls beside the loop it replaced; the Poseidon-BN254 rows carry a
+   latency bound beside their throughput bound, and the scan its two forms'
+   bounds and chains;
 4. the main path under PLONKY2_TPU_PB_IMPL=mxu, through the compiled
    verifier (one CUDA graph per key, captured at the key's first call; the
    cache emptied first): verifies 256 copies of testdata/step with one
@@ -68,7 +72,8 @@
    CIOS kernel) 63 times, the transcript kernel twice (the sponge and the
    transcript), QE Horner 8, QE powers 2 and QE inverse 7 times, the
    products 16, 17 and 154 times and the interpolation scan once, and gives
-   the device's events (against 61,926 with the products plain) and busy
+   the device's events (against 9,146 with the scan's operands gathered and
+   concatenated by plain kernels, 61,926 with the products plain) and busy
    share; the eager wall against the median of 5 replays, the first call
    with its warm-up and capture, and the peak device memory with the graphs
    held;
@@ -175,6 +180,13 @@ BN254_TC_INT8_OPS = 64 * 128 * 128 * 2
 # MDS matrix's small entries at 2 x 2.
 GL_PERM_IMADS = ((8 * 12 + 22) * (2 * 8 + 2 * 6) + (11 * 11 + 22 * 23) * 8
                  + 8 * 144 * 4)
+# Dependent Montgomery products on the critical path of one Poseidon-BN254
+# permutation (hash/poseidon_bn254.py): a round's S-box x^5 is 3 deep (x^2,
+# x^4, x^4 x), its linear layer 1 (products by constants, each reduced, then
+# summed); a partial round's S-box is on one element.  Times L, the
+# latency of one dependent Goldilocks product, a lower bound on that of a
+# Montgomery product over 256 bits: the permutation's latency bound.
+BN254_PERM_DEPTH = (pb.FULL_ROUNDS + pb.PARTIAL_ROUNDS) * (3 + 1)
 # Dependent Goldilocks products on the shortest critical path of one
 # permutation (counted in csrc/poseidon_gl_transcript.cu): a full round is
 # 4 (x^7 in 3, then the MDS row); row 0 of the initial matrix is the
@@ -220,12 +232,14 @@ PRODUCT_LAUNCHES = {
 REPLAYS = 5
 # A step replay issued 367,045 device events while the chains and the
 # public-input hash still ran as plain torch, and 61,926 with them on the
-# card and the products plain, and 9,268 with the products on the card
-# before the bit-selected product (PERF.md §5 and §6, NVIDIA H100 80GB HBM3,
+# card and the products plain, 9,268 with the products on the card before
+# the bit-selected product, and 9,146 before the interpolation scan read
+# its operands from the wires (PERF.md §5 and §6, NVIDIA H100 80GB HBM3,
 # 700.00 W).
 PLAIN_CHAINS_REPLAY_EVENTS = 367045
 PLAIN_PRODUCTS_REPLAY_EVENTS = 61926
 LOOP_PRODUCTS_REPLAY_EVENTS = 9268
+GATHERED_SCAN_REPLAY_EVENTS = 9146
 # The chain kernels' checked shapes: (terms, x) of every horner call at B=256
 # on step and decode_block (the final polynomial is 32 and 16 long, the FRI
 # batch 258 and 257), lane counts off the chains' blocks (whole warps, about
@@ -293,14 +307,21 @@ QE_INV_ELEMENT_FORM_IMADS = 14 * 8 + 65 * 6
 QE_INV_DEPTH = 75  # dependent products of one inverse an element
 # The products: a Goldilocks product is 8 IMADs and reads 32 B and writes
 # 16 B an element (a product by a constant reads 16 B); a QE product is 5
-# Goldilocks products (W b1 first) and reads 64 B and writes 32 B.  A step
-# of the interpolation scan is 70 Goldilocks products: val_j w_j (4) and
-# three extension-algebra products of 4 QE products and 2 products by W
-# each; each running value waits on 3 dependent products a step.
+# Goldilocks products (W b1 first) and reads 64 B and writes 32 B.  An
+# extension-algebra product is 4 QE products and 2 products by W, 22
+# Goldilocks products, 3 deep (W b1, the product by it, the Y^2 part by W).
+# The interpolation scan in the JAX form: a step is val_j w_j (4) and three
+# EA products, and each running value waits on one EA product a step.  In
+# the kernel's prefix-suffix form each of a chunk's S = 2^k >= deg threads
+# makes w_j v_j (4), k rounds of a prefix and a suffix product and two
+# products into its term, and the chunk's first thread 3 EA products more;
+# the chain is k rounds, the term's two products and pr0 sum: k + 3 EA
+# products.
 GL_MUL_IMADS = 8
 QE_MUL_IMADS = 5 * 8
-SCAN_STEP_IMADS = 70 * 8
-SCAN_STEP_DEPTH = 3
+EA_MUL_PRODUCTS = 22
+EA_MUL_DEPTH = 3
+SCAN_STEP_IMADS = (4 + 3 * EA_MUL_PRODUCTS) * GL_MUL_IMADS
 # The product kernels' checked shapes: the main path's at B=256 (the
 # largest, (256, 28, 16, 8), is prod_axis over the FRI openings) and lane
 # counts off the 128-thread blocks; the constants of mul_const.
@@ -348,6 +369,36 @@ def bn254_bound(lanes, rate):
             else "CIOS form: IMADs")
     ms, by = bound(min(cios_ms, tc_ms), lanes * 1024)
     return ms, by, form if by == "operations" else "bytes"
+
+
+def bn254_latency_ms(latency_s):
+    """One Poseidon-BN254 launch's latency bound: every lane's permutation
+    is BN254_PERM_DEPTH dependent products of at least L each."""
+    return BN254_PERM_DEPTH * latency_s * 1e3
+
+
+def scan_bound(gate, lanes, rate, latency_s):
+    """The interpolation scan of ``gate`` over ``lanes``: (ms, what bounds
+    it, form) for the least over the JAX form and the kernel's
+    prefix-suffix form against bytes (the intermediates, the values the
+    active steps read and the point in, ev and pr out; the schedule's 20 B
+    a cell), and each form's chain of dependent products x L in ms."""
+    x, _, col, log_seg = km.scan_cells(gate.schedule)
+    chunks, active = len(col) >> log_seg, int((col >= 0).sum())
+    ea_imads = EA_MUL_PRODUCTS * GL_MUL_IMADS
+    scan_ms = lanes * active * SCAN_STEP_IMADS / rate * 1e3
+    seg_imads = ((1 << log_seg) * (4 * GL_MUL_IMADS + (2 * log_seg + 2)
+                                   * ea_imads) + 3 * ea_imads)
+    seg_ms = lanes * chunks * seg_imads / rate * 1e3
+    nbytes = 64 * lanes * (2 * (chunks - 1) + active + 1 + 2 * chunks)
+    ms, by = bound(min(scan_ms, seg_ms), nbytes + 20 * len(x))
+    form = ("JAX form: IMADs" if scan_ms <= seg_ms
+            else "prefix-suffix form: IMADs") if by == "operations" else "bytes"
+    deg = gate.schedule[3].shape[0]
+    chains = {"scan_latency_ms": deg * EA_MUL_DEPTH * latency_s * 1e3,
+              "prefix_suffix_latency_ms":
+                  (log_seg + 3) * EA_MUL_DEPTH * latency_s * 1e3}
+    return ms, by, form, chains
 
 
 def transcript_bound(n_perms, batch, nbytes, rate, latency_s):
@@ -772,19 +823,30 @@ def coset_gate(spec):
     return gate
 
 
-def scan_inputs(gate, lanes, rng, dev):
-    """The interpolation scan's arguments at ``lanes``: random EA state,
-    values and point (edge values first), the gate's own schedule."""
-    xs, ws, _, active = gate.schedule
-    C, deg = 1 + gate.num_intermediates, gate.degree
+def scan_inputs(gate, lanes, rng, dev, zero_t=False):
+    """The interpolation scan's arguments at ``lanes``: random EA
+    intermediates, values and point (the edge pairs first, in both halves),
+    the gate's own host schedule.  With ``zero_t`` the point of lane i is
+    the domain point of the i-th active (step, chunk), chunk by chunk, in
+    its first coordinate and 0 in the others: that step's t is 0."""
+    ni = gate.num_intermediates
 
     def ea(shape):
         return (qe_values(shape, rng, dev), qe_values(shape, rng, dev))
 
-    return (ea((lanes, C)), ea((lanes, C)), ea((lanes, deg, C)),
-            ea((lanes, 1)), tuple(gl.device_table(t, dev) for t in xs),
-            tuple(gl.device_table(t, dev) for t in ws),
-            gl.device_table(active, dev))
+    pt = ea((lanes, 1))
+    if zero_t:
+        xs, _, _, active = gate.schedule
+        x = xs[0].astype(np.uint64) | (xs[1].astype(np.uint64) << np.uint64(32))
+        points = x.T[active.T][:lanes]
+        n = len(points)
+        for plane, value in zip(pt[0][0], gl.split_u64(points, dev)):
+            plane.view(-1)[:n] = value
+        for value in (pt[0][1], pt[1][0], pt[1][1]):
+            for plane in value:
+                plane.view(-1)[:n] = 0
+    return (ea((lanes, ni)), ea((lanes, ni)), ea((lanes, gate.num_points)),
+            pt, gate.schedule)
 
 
 def bits_calls(spec):
@@ -834,9 +896,9 @@ def check_product_kernels(dev, rng, specs):
     shape of PRODUCT_SHAPES, on each broadcast pattern of the call sites,
     strided views and an empty lead shape, for the constants MUL_CONSTS;
     the interpolation scan on the gate of each spec ({fixture: spec}) at
-    SCAN_LANES against the
-    plain scan on CPU copies.  Returns each one's largest |kernel - plain|
-    (0)."""
+    SCAN_LANES, and with points equal to domain points (a zero t), against
+    the plain scan on CPU copies.  Returns each one's largest |kernel -
+    plain| (0)."""
     err = {"gl_mul": 0, "gl_mul_const": 0, "qe_mul": 0,
            "coset_interp_scan": 0}
 
@@ -951,11 +1013,15 @@ def check_product_kernels(dev, rng, specs):
                 f"bit-selected: {what} against contiguous copies", 2)
     for fixture, spec in specs.items():
         gate = coset_gate(spec)
-        for lanes in SCAN_LANES:
-            args = scan_inputs(gate, lanes, rng, dev)
+        for lanes, zero_t in [(n, False) for n in SCAN_LANES] + [
+                (STEP_BATCH, True), (33, True)]:
+            args = scan_inputs(gate, lanes, rng, dev, zero_t)
             run("coset_interp_scan", lambda: G.coset_interp_scan(*args),
-                lambda: G.coset_interp_scan_plain(*on_cpu(args)),
-                f"{fixture}'s gate, {lanes} lanes")
+                lambda: G.coset_interp_scan_plain(
+                    *G.coset_interp_scan_operands(*on_cpu(args[:4]),
+                                                  gate.schedule)),
+                f"{fixture}'s gate, {lanes} lanes"
+                + (", points on the domain" if zero_t else ""))
     return err
 
 
@@ -963,7 +1029,7 @@ def time_product_kernels(dev, rng, rate, latency_s, spec):
     """Each product kernel at its largest main-path shape and the scan on
     ``spec``'s gate at B=STEP_BATCH: its time in a CUDA graph, its plain
     version's in a graph and eagerly (every product plain), its bound and,
-    for the scan, the latency of its chain."""
+    for the scan, its two forms' bounds and the latency of their chains."""
     B = STEP_BATCH
     a, b = (gl_values((B, 28, 16), rng, dev) for _ in range(2))
     c_arg = gl_values((B, 44), rng, dev)
@@ -972,8 +1038,11 @@ def time_product_kernels(dev, rng, rate, latency_s, spec):
     n_gl, n_c, n_qe = B * 28 * 16, B * 44, B * 28 * 16 * 8
     gate = coset_gate(spec)
     args = scan_inputs(gate, B, rng, dev)
+    operands = G.coset_interp_scan_operands(*args)
     C, deg = 1 + gate.num_intermediates, gate.degree
     steps = int(gate.schedule[3].sum())  # the active (step, chunk) pairs
+    scan_ms, scan_by, scan_form, scan_chains = scan_bound(gate, B, rate,
+                                                          latency_s)
     cases = {
         # name: (kernel, plain, shape, IMADs, bytes); the bytes of each
         # input read once and each output written once
@@ -987,26 +1056,24 @@ def time_product_kernels(dev, rng, rate, latency_s, spec):
         "qe_mul": (lambda: qe.mul(x, y), lambda: qe.mul_plain(x, y),
                    f"even x odd columns of ({B}, 28, 16, 16)",
                    n_qe * QE_MUL_IMADS, 96 * n_qe),
-        # ev and pr in and out, the values, the point; xs, ws (16 B) and
-        # the mask (1 B) a (step, chunk)
+        # the bound of scan_bound
         "coset_interp_scan": (
             lambda: G.coset_interp_scan(*args),
-            lambda: G.coset_interp_scan_plain(*args),
+            lambda: G.coset_interp_scan_plain(*operands),
             f"{B} lanes x {C} chunks, {deg} steps ({steps} active)",
-            B * steps * SCAN_STEP_IMADS,
-            64 * B * (4 * C + deg * C + 1) + 33 * deg * C),
+            None, None),
     }
     out = {}
     for name, (kern, plain, shape, imads, nbytes) in cases.items():
-        ms, by = bound(imads / rate * 1e3, nbytes)
+        ms, by = ((scan_ms, scan_by) if imads is None
+                  else bound(imads / rate * 1e3, nbytes))
         with plain_products():
             plain_ms = graph_ms(plain, 2)
             plain_eager_ms = cuda_ms(plain, 2)
         out[name] = {"shape": shape, "ms": graph_ms(kern),
                      "plain_ms": plain_ms, "plain_eager_ms": plain_eager_ms,
                      "bound_ms": ms, "bound_by": by}
-    out["coset_interp_scan"]["scan_latency_ms"] = (
-        deg * SCAN_STEP_DEPTH * latency_s * 1e3)
+    out["coset_interp_scan"].update(bound_form=scan_form, **scan_chains)
     out["gl_mul_const"]["bits_form"] = time_bits_form(dev, rng, rate, spec)
     return out
 
@@ -1244,7 +1311,8 @@ def compiled_checks(impl, dev, card, spec_step, batch_step, expected,
           f"{[round(w, 4) for w in graph_only]} (median "
           f"{np.median(graph_only):.4f} s) [{card}]")
     print(f"{impl}: one replay under torch.profiler: wall {wall:.4f} s, "
-          f"{n_dev} device events (with FRI's bit loops: "
+          f"{n_dev} device events (with the scan's operands gathered: "
+          f"{GATHERED_SCAN_REPLAY_EVENTS}; with FRI's bit loops: "
           f"{LOOP_PRODUCTS_REPLAY_EVENTS}; with the plain products: "
           f"{PLAIN_PRODUCTS_REPLAY_EVENTS}; with the plain chains too: "
           f"{PLAIN_CHAINS_REPLAY_EVENTS}), device busy {busy:.4f} s "
@@ -1552,9 +1620,13 @@ def main():
     for name, t in chain_t.items():
         print(f"{name} at {t['shape']}: kernel {t['ms']:.5f} ms, plain "
               f"{t['plain_ms']:.4f} ms in a graph and {t['plain_eager_ms']:.2f}"
-              f" ms eagerly; bound {t['bound_ms']:.5f} ms ({t['bound_by']})"
+              f" ms eagerly; bound {t['bound_ms']:.5f} ms ({t['bound_by']}"
+              + (f", {t['bound_form']}" if "bound_form" in t else "") + ")"
               + (f", the scan's chain {t['scan_latency_ms']:.5f} ms"
-                 if "scan_latency_ms" in t else "") + f" [{card}]")
+                 if "scan_latency_ms" in t else "")
+              + (f", the prefix-suffix form's chain "
+                 f"{t['prefix_suffix_latency_ms']:.5f} ms"
+                 if "prefix_suffix_latency_ms" in t else "") + f" [{card}]")
     for name in ("qe_horner", "qe_powers"):
         for r in chain_t[name]["at_main_path_shapes"]:
             widths = ", ".join(f"{g}: {ms:.5f}"
@@ -1694,6 +1766,7 @@ def main():
 
     bn_bound, bn_by, bn_form = bn254_bound(lanes[-1], rate)
     bn_bound_small = bn254_bound(lanes[0], rate)[0]
+    bn_latency = bn254_latency_ms(latency_s)
 
     def at_lanes(n, key):
         return {"lanes": n, "ms": float(np.mean(bn_ms[n][key])),
@@ -1718,6 +1791,7 @@ def main():
          "lanes": lanes[-1], "ms": float(np.mean(bn_ms[lanes[-1]]["a"])),
          "plain_ms": bn_plain[lanes[-1]]["a"],
          "bound_ms": bn_bound, "bound_by": bn_by, "bound_form": bn_form,
+         "latency_bound_ms": bn_latency,
          "library_ms": NO_LIBRARY,
          "launches_in_one_replay": replay_kernels["mxu"]["poseidon_bn254"][0],
          "at_smaller_launch": at_small("a"),
@@ -1731,6 +1805,7 @@ def main():
          "lanes": lanes[-1], "ms": float(np.mean(bn_ms[lanes[-1]]["cios"])),
          "plain_ms": bn_plain[lanes[-1]]["cios"],
          "bound_ms": bn_bound, "bound_by": bn_by, "bound_form": bn_form,
+         "latency_bound_ms": bn_latency,
          "library_ms": NO_LIBRARY,
          "launches_in_one_replay":
              replay_kernels["cios"]["poseidon_bn254_cios"][0],
@@ -1794,13 +1869,16 @@ def main():
           f"{REPLAYS}): mxu {replay['mxu']['graph_median_s']:.4f} s, cios "
           f"{replay['cios']['graph_median_s']:.4f} s; device events in one "
           f"profiled replay: mxu {replay['mxu']['device_events']}, cios "
-          f"{replay['cios']['device_events']} (with FRI's bit loops: "
+          f"{replay['cios']['device_events']} (with the scan's operands "
+          f"gathered: {GATHERED_SCAN_REPLAY_EVENTS}; with FRI's bit loops: "
           f"{LOOP_PRODUCTS_REPLAY_EVENTS}; with the plain products: "
           f"{PLAIN_PRODUCTS_REPLAY_EVENTS}; with the plain chains too: "
           f"{PLAIN_CHAINS_REPLAY_EVENTS}) [{card}]")
     print(f"kernel bounds at the timed shapes: BN254 {lanes[-1]} lanes "
           f"{bn_bound:.4f} ms, {lanes[0]} lanes {bn_bound_small:.4f} ms "
-          f"({bn_form}), transcript {n_perms} x "
+          f"({bn_form}), and a launch's latency bound {bn_latency:.5f} ms "
+          f"({BN254_PERM_DEPTH} dependent products x "
+          f"{latency_s * 1e9:.3f} ns); transcript {n_perms} x "
           f"{STEP_BATCH} permutations {tr_bound:.4f} ms ({tr_form}: "
           f"{n_perms} x {GL_PERM_DEPTH} x {latency_s * 1e9:.3f} ns) [{card}]")
     print(json.dumps({"kernels": kernels}))

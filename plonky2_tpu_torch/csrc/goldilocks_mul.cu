@@ -21,7 +21,9 @@
 //     term = pt - x_j (base coordinate of the first QE only),
 //     ev' = ev term + (val_j w_j) pr,  pr' = pr term,
 //   each kept only where active[j, c], over the extension algebra
-//   (QE[Y]/(Y^2 - 7), ea_mul in goldilocks.cuh).
+//   (QE[Y]/(Y^2 - 7), ea_mul in goldilocks.cuh); chunk 0 starts at (0, 1),
+//   chunk c >= 1 at the gate's intermediate wires, and val_j is read from
+//   the gate's value columns through the schedule (:277-280's gather).
 // The port's plain versions are fields/goldilocks.py mul_plain,
 // mul_const_plain and mul_const_bits_plain, fields/goldilocks_ext.py
 // mul_plain and mul_add_plain, and gates/gates.py coset_interp_scan_plain;
@@ -46,10 +48,11 @@
 // at these sizes a launch is a few microseconds of fixed cost, far above
 // either bound; what the kernels save is the ~146 int64 torch ops a product
 // that the plain version issues, and the bit-selected product does a whole
-// chain of them in one launch.  The scan is latency-bound: deg dependent
-// steps of three EA products (12 QE products, about 3 dependent GL
-// products deep each) on B x C threads.  A simple kernel first: one thread
-// an element (a lane and chunk for the scan), 128-thread blocks.
+// chain of them in one launch; one thread an element, 128-thread blocks.
+// The scan's steps, deg dependent steps of three EA products in the JAX
+// form, would give one thread a lane and chunk, 768 threads at B = 256 on
+// 6 SMs; they run side by side instead, a group of threads a step, through
+// prefix and suffix products (below), with the gate's schedule by value.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -143,69 +146,194 @@ qe_mul_kernel(Strided<12> s, int add, long long* out) {
 }
 
 // -- the coset-interpolation chunk scan -------------------------------------
+//
+// The scan's recurrence, ev' = ev t_j + u_j pr, pr' = pr t_j with t_j = pt -
+// x_j and u_j = w_j v_j, unrolls over a chunk's steps (the EA ring is
+// commutative) to
+//   pr_out = pr0 P,  ev_out = ev0 P + pr0 sum_j u_j prod_(i != j) t_i,
+// P = prod_j t_j; an inactive step is t = 1, u = 0.  A chunk of a lane is a
+// segment of S = 2^LOG_S >= deg steps of G threads each, inside one warp
+// (G = 4 up to S = 8, then 2 and 1): the group of step j forms t_j and u_j;
+// the segment's exclusive prefix and suffix products of the t's come from
+// LOG_S rounds of __shfl_up_sync / __shfl_down_sync each (the two chains
+// side by side); step j's term is u_j times both; the terms are summed by
+// xor-shuffles; and the group of step 0, which holds P as its inclusive
+// suffix product, writes the chunk.  Every EA product is split over the G
+// threads of a group, a QE product each at G = 4 (ea_mul_group), so that a
+// thread makes 7 Goldilocks products an EA product, not 22, and 4 times as
+// many warps share the work.  Steps past deg, inactive steps and segments
+// past the end take t = 1 and u = 0; every thread of the warp stays to the
+// shuffles (the full mask).
 
-// Planes, each with strides over (lane, step, chunk): ev (8), pr (8), val
-// (8), pt (8), xs (2), ws (2), active (1, bytes).
-constexpr int SCAN_PLANES = 37;
-constexpr int SCAN_PLANE = 4;  // pointer, three strides
-enum { EV = 0, PR = 8, VAL = 16, PT = 24, XS = 32, WS = 34, ACT = 36 };
+constexpr int SCAN_BLOCK = 64;       // two warps: segments never straddle one
+constexpr int SCAN_MAX_LOG_SEG = 5;  // a segment lies inside one warp
+constexpr int SCAN_MAX_CELLS = 128;  // chunks x S steps in the schedule
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
+// Planes, each with strides over (lane, column): inter_eval (8) and
+// inter_prod (8), column c - 1 for chunk c >= 1 (chunk 0 starts at ev = 0,
+// pr = 1); pt (8), column c (stride 0 where it broadcasts); the values (8),
+// column col[cell].
+constexpr int SCAN_PLANES = 32;
+enum { EV = 0, PR = 8, PT = 16, VAL = 24 };
+
+// The gate's schedule and the operands, by value (__grid_constant__: read
+// through the parameter bank, no copy).  Cell c S + j is step j of chunk c:
+// its domain point x, its barycentric weight w and the value column col, -1
+// where the step is inactive or j >= deg.
 struct Scan {
-  int lanes, deg, chunks;
+  u64 x[SCAN_MAX_CELLS];
+  u64 w[SCAN_MAX_CELLS];
+  int col[SCAN_MAX_CELLS];
   const long long* ptr[SCAN_PLANES];
-  long long stride[SCAN_PLANES][3];
+  long long stride[SCAN_PLANES][2];
+  int lanes, chunks;
 };
 
-__device__ __forceinline__ long long at(const Scan& s, int k, int b, int j,
-                                        int c) {
-  return s.stride[k][0] * b + s.stride[k][1] * j + s.stride[k][2] * c;
+__device__ __forceinline__ u64 scan_gl(const Scan& s, int k, long long b,
+                                       long long col) {
+  return join(s.ptr[k], s.ptr[k + 1], s.stride[k][0] * b + s.stride[k][1] * col,
+              s.stride[k + 1][0] * b + s.stride[k + 1][1] * col);
 }
 
-__device__ __forceinline__ u64 load_gl(const Scan& s, int k, int b, int j,
-                                       int c) {
-  return join(s.ptr[k], s.ptr[k + 1], at(s, k, b, j, c),
-              at(s, k + 1, b, j, c));
+__device__ __forceinline__ Ea scan_ea(const Scan& s, int k, long long b,
+                                      long long col) {
+  return Ea{Qe{scan_gl(s, k, b, col), scan_gl(s, k + 2, b, col)},
+            Qe{scan_gl(s, k + 4, b, col), scan_gl(s, k + 6, b, col)}};
 }
 
-__device__ __forceinline__ Ea load_ea(const Scan& s, int k, int b, int j,
-                                      int c) {
-  return Ea{Qe{load_gl(s, k, b, j, c), load_gl(s, k + 2, b, j, c)},
-            Qe{load_gl(s, k + 4, b, j, c), load_gl(s, k + 6, b, j, c)}};
+// f applied to each of an EA value's four words.
+template <class F>
+__device__ __forceinline__ Ea ea_map(const Ea& v, F f) {
+  return Ea{Qe{f(v.a.c0), f(v.a.c1)}, Qe{f(v.b.c0), f(v.b.c1)}};
 }
 
-// out (16, lanes, chunks): ev's eight planes, then pr's
-__global__ void __launch_bounds__(THREADS)
-coset_interp_scan_kernel(Scan s, long long* out) {
-  const int t = blockIdx.x * THREADS + threadIdx.x;
-  if (t >= s.lanes * s.chunks) return;
-  const int b = t / s.chunks;
-  const int c = t % s.chunks;
-  Ea ev = load_ea(s, EV, b, 0, c);
-  Ea pr = load_ea(s, PR, b, 0, c);
-  const Ea pt = load_ea(s, PT, b, 0, c);
-  const unsigned char* act = (const unsigned char*)s.ptr[ACT];
-#pragma unroll 1
-  for (int j = 0; j < s.deg; ++j) {
-    if (!act[at(s, ACT, b, j, c)]) continue;
-    const u64 x = load_gl(s, XS, b, j, c);
-    const u64 w = load_gl(s, WS, b, j, c);
-    const Ea v = load_ea(s, VAL, b, j, c);
-    const Ea term{Qe{gl_sub(pt.a.c0, x), pt.a.c1}, pt.b};
-    const Ea wv{Qe{gl_mul(v.a.c0, w), gl_mul(v.a.c1, w)},
-                Qe{gl_mul(v.b.c0, w), gl_mul(v.b.c1, w)}};
-    const Ea next = ea_add(ea_mul(ev, term), ea_mul(wv, pr));
-    pr = ea_mul(pr, term);
-    ev = next;
+__device__ __forceinline__ Ea ea_select(bool c, const Ea& x, const Ea& y) {
+  return Ea{Qe{c ? x.a.c0 : y.a.c0, c ? x.a.c1 : y.a.c1},
+            Qe{c ? x.b.c0 : y.b.c0, c ? x.b.c1 : y.b.c1}};
+}
+
+__device__ __forceinline__ Qe qe_xor(const Qe& v, int m) {
+  return Qe{__shfl_xor_sync(FULL, v.c0, m), __shfl_xor_sync(FULL, v.c1, m)};
+}
+
+__device__ __forceinline__ Qe qe_times_w(const Qe& v) {
+  return Qe{gl_mul(v.c0, W), gl_mul(v.c1, W)};
+}
+
+// x y, (x.a y.a + W x.b y.b) + (x.a y.b + x.b y.a) Y, by the G threads of a
+// group (g its thread), each holding all of x and y: at G = 4 thread g makes
+// x.a y.a, x.b y.b, x.a y.b or x.b y.a, at G = 2 one half of the product;
+// the halves are exchanged by __shfl_xor_sync and every thread returns the
+// whole product.
+template <int G>
+__device__ __forceinline__ Ea ea_mul_group(const Ea& x, const Ea& y, int g) {
+  if constexpr (G == 1) {
+    return ea_mul(x, y);
+  } else if constexpr (G == 2) {
+    const Qe p = qe_mul(x.a, g ? y.b : y.a);
+    const Qe q = qe_mul(x.b, g ? y.a : y.b);
+    const Qe half = qe_add(p, g ? q : qe_times_w(q));
+    const Qe other = qe_xor(half, 1);
+    return g ? Ea{other, half} : Ea{half, other};
+  } else {
+    const Qe p = qe_mul(g & 1 ? x.b : x.a, (g ^ (g >> 1)) & 1 ? y.b : y.a);
+    const Qe q = qe_xor(p, 1);
+    const Qe even = g & 1 ? q : p;  // x.a y.a (g < 2) or x.a y.b
+    const Qe odd = g & 1 ? p : q;   // x.b y.b (g < 2) or x.b y.a
+    const Qe half = qe_add(even, g < 2 ? qe_times_w(odd) : odd);
+    const Qe other = qe_xor(half, 2);
+    return g < 2 ? Ea{half, other} : Ea{other, half};
   }
+}
+
+// Coordinate k (a.c0, a.c1, b.c0, b.c1) of v into planes plane + 2 k and
+// plane + 2 k + 1 of out.
+__device__ __forceinline__ void scan_store(long long* out, long long n,
+                                           int plane, long long e, const Ea& v,
+                                           int k) {
+  split(out, n, plane + 2 * k, e,
+        k == 0 ? v.a.c0 : k == 1 ? v.a.c1 : k == 2 ? v.b.c0 : v.b.c1);
+}
+
+// out (16, lanes, chunks): ev's eight planes, then pr's.
+template <int LOG_S>
+__global__ void __launch_bounds__(SCAN_BLOCK)
+coset_interp_scan_kernel(const __grid_constant__ Scan s, long long* out) {
+  constexpr int LOG_G = LOG_S <= 3 ? 2 : SCAN_MAX_LOG_SEG - LOG_S;
+  constexpr int S = 1 << LOG_S, G = 1 << LOG_G, WIDTH = S * G;
+  const long long t = (long long)blockIdx.x * SCAN_BLOCK + threadIdx.x;
+  const long long seg = t >> (LOG_S + LOG_G);
+  const int j = (int)(t >> LOG_G) & (S - 1);
+  const int g = (int)t & (G - 1);
   const long long n = (long long)s.lanes * s.chunks;
-  split(out, n, 0, t, ev.a.c0);
-  split(out, n, 2, t, ev.a.c1);
-  split(out, n, 4, t, ev.b.c0);
-  split(out, n, 6, t, ev.b.c1);
-  split(out, n, 8, t, pr.a.c0);
-  split(out, n, 10, t, pr.a.c1);
-  split(out, n, 12, t, pr.b.c0);
-  split(out, n, 14, t, pr.b.c1);
+  const bool live = seg < n;
+  const long long b = live ? seg / s.chunks : 0;
+  const int c = live ? (int)(seg % s.chunks) : 0;
+  const int cell = c * S + j;
+  const int col = live ? s.col[cell] : -1;
+  const Ea zero{Qe{0, 0}, Qe{0, 0}};
+  const Ea one{Qe{1, 0}, Qe{0, 0}};
+
+  // every load first: the step's value and the point; the chunk's start on
+  // the group that writes it
+  Ea v = zero, pt = zero, ev0 = zero, pr0 = one;
+  if (col >= 0) v = scan_ea(s, VAL, b, col);
+  if (live) pt = scan_ea(s, PT, b, c);
+  if (live && j == 0 && c > 0) {
+    ev0 = scan_ea(s, EV, b, c - 1);
+    pr0 = scan_ea(s, PR, b, c - 1);
+  }
+  const u64 x = s.x[cell];
+  const u64 w = s.w[cell];
+
+  // t_j = pt - x_j in the base coordinate of the first QE, u_j = w_j v_j
+  Ea tj = pt;
+  tj.a.c0 = gl_sub(pt.a.c0, x);
+  tj = ea_select(col >= 0, tj, one);
+  const Ea u = ea_map(v, [w](u64 e) { return gl_mul(e, w); });
+
+  // inclusive prefix and suffix products of the segment's t's
+  Ea pre = tj, suf = tj;
+#pragma unroll
+  for (int d = 1; d < S; d <<= 1) {
+    const Ea lo = ea_map(pre, [d](u64 e) {
+      return __shfl_up_sync(FULL, e, d * G, WIDTH); });
+    const Ea hi = ea_map(suf, [d](u64 e) {
+      return __shfl_down_sync(FULL, e, d * G, WIDTH); });
+    pre = ea_mul_group<G>(ea_select(j >= d, lo, one), pre, g);
+    suf = ea_mul_group<G>(suf, ea_select(j + d < S, hi, one), g);
+  }
+  // exclusive: the products of the t's before and after step j
+  const Ea before = ea_select(j > 0, ea_map(pre, [](u64 e) {
+    return __shfl_up_sync(FULL, e, G, WIDTH); }), one);
+  const Ea after = ea_select(j < S - 1, ea_map(suf, [](u64 e) {
+    return __shfl_down_sync(FULL, e, G, WIDTH); }), one);
+  Ea sum = ea_mul_group<G>(ea_mul_group<G>(u, before, g), after, g);
+#pragma unroll
+  for (int d = 1; d < S; d <<= 1)
+    sum = ea_add(sum, ea_map(sum, [d](u64 e) {
+      return __shfl_xor_sync(FULL, e, d * G, WIDTH); }));
+
+  // on the group of step 0, suf = P, the product of every t of the chunk;
+  // every thread computes, for the shuffles' full mask
+  const Ea ev = ea_add(ea_mul_group<G>(ev0, suf, g),
+                       ea_mul_group<G>(pr0, sum, g));
+  const Ea pr = ea_mul_group<G>(pr0, suf, g);
+  if (live && j == 0) {
+    for (int k = g; k < 4; k += G) {  // the group shares the stores
+      scan_store(out, n, 0, seg, ev, k);
+      scan_store(out, n, 8, seg, pr, k);
+    }
+  }
+}
+
+template <int LOG_S>
+void launch_scan(const Scan& s, cudaStream_t stream, long long* out) {
+  constexpr int LOG_G = LOG_S <= 3 ? 2 : SCAN_MAX_LOG_SEG - LOG_S;
+  const long long threads = ((long long)s.lanes * s.chunks) << (LOG_S + LOG_G);
+  const unsigned grid = (unsigned)((threads + SCAN_BLOCK - 1) / SCAN_BLOCK);
+  coset_interp_scan_kernel<LOG_S><<<grid, SCAN_BLOCK, 0, stream>>>(s, out);
 }
 
 unsigned blocks(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
@@ -264,21 +392,44 @@ extern "C" int p2t_qe_mul(const long long* desc, int add, void* out,
   return (int)cudaGetLastError();
 }
 
-// desc: lanes, deg, chunks, then per plane (SCAN_PLANES, in the order of the
-// enum above) its pointer and strides over (lane, step, chunk); out (16,
-// lanes, chunks) int64, contiguous.  lanes x chunks > 0.
-extern "C" int p2t_coset_interp_scan(const long long* desc, void* out,
-                                     void* stream) {
+// desc: per plane (SCAN_PLANES, in the order of the enum above) its pointer
+// and its strides over (lane, column); xs, ws, cols: the schedule's
+// chunks x 2^log_seg cells (host memory, read before the launch returns),
+// cols[cell] < 0 for a step that is inactive or past deg; out (16, lanes,
+// chunks) int64, contiguous.  cudaErrorInvalidValue for lanes or chunks <
+// 1, log_seg outside [0, 5] or more than SCAN_MAX_CELLS cells.
+extern "C" int p2t_coset_interp_scan(const long long* desc,
+                                     const unsigned long long* xs,
+                                     const unsigned long long* ws,
+                                     const int* cols, int lanes, int chunks,
+                                     int log_seg, void* out, void* stream) {
+  if (lanes < 1 || chunks < 1 || log_seg < 0 ||
+      log_seg > SCAN_MAX_LOG_SEG || (chunks << log_seg) > SCAN_MAX_CELLS)
+    return (int)cudaErrorInvalidValue;
   Scan s;
-  s.lanes = (int)desc[0];
-  s.deg = (int)desc[1];
-  s.chunks = (int)desc[2];
-  for (int k = 0; k < SCAN_PLANES; ++k) {
-    const long long* p = desc + 3 + SCAN_PLANE * k;
-    s.ptr[k] = (const long long*)p[0];
-    for (int d = 0; d < 3; ++d) s.stride[k][d] = p[1 + d];
+  s.lanes = lanes;
+  s.chunks = chunks;
+  const int cells = chunks << log_seg;
+  for (int i = 0; i < SCAN_MAX_CELLS; ++i) {
+    s.x[i] = i < cells ? xs[i] : 0;
+    s.w[i] = i < cells ? ws[i] : 0;
+    s.col[i] = i < cells ? cols[i] : -1;
   }
-  coset_interp_scan_kernel<<<blocks((long long)s.lanes * s.chunks), THREADS,
-                             0, (cudaStream_t)stream>>>(s, (long long*)out);
+  for (int k = 0; k < SCAN_PLANES; ++k) {
+    const long long* p = desc + 3 * k;
+    s.ptr[k] = (const long long*)p[0];
+    s.stride[k][0] = p[1];
+    s.stride[k][1] = p[2];
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  long long* o = (long long*)out;
+  switch (log_seg) {
+    case 0: launch_scan<0>(s, st, o); break;
+    case 1: launch_scan<1>(s, st, o); break;
+    case 2: launch_scan<2>(s, st, o); break;
+    case 3: launch_scan<3>(s, st, o); break;
+    case 4: launch_scan<4>(s, st, o); break;
+    default: launch_scan<5>(s, st, o); break;
+  }
   return (int)cudaGetLastError();
 }

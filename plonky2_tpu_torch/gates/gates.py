@@ -169,14 +169,38 @@ class ConstantGate:
                       qe.index(wires, (Ellipsis, slice(0, n))))
 
 
-def coset_interp_scan(ev, pr, val, pt, xs, ws, active):
-    """The interpolation gate's chunk steps (``coset_interp_scan_plain``):
-    one CUDA kernel launch on a CUDA tensor, the plain version on a CPU
-    tensor."""
-    k = gl.mul_kernels(ev[0][0][0])
+def coset_interp_scan(inter_eval, inter_prod, values, pt, schedule):
+    """The interpolation gate's chunk steps from its wires: chunk 0 starts
+    at ev = 0, pr = 1, chunk c >= 1 at (inter_eval, inter_prod)[..., c - 1]
+    (EA (B, C - 1)); step j of chunk c takes values[..., vidx[j, c]] (EA (B,
+    n)); pt EA (B, 1); schedule: the gate's host schedule (numpy,
+    ``CosetInterpolationGate.schedule``).  One CUDA kernel launch on a CUDA
+    tensor, the schedule passed by value; the plain version on a CPU
+    tensor.  Returns (ev, pr) EA (B, C)."""
+    k = gl.mul_kernels(values[0][0][0])
     if k is None:
-        return coset_interp_scan_plain(ev, pr, val, pt, xs, ws, active)
-    return k.coset_interp_scan(ev, pr, val, pt, xs, ws, active)
+        return coset_interp_scan_plain(*coset_interp_scan_operands(
+            inter_eval, inter_prod, values, pt, schedule))
+    return k.coset_interp_scan(inter_eval, inter_prod, values, pt, schedule)
+
+
+def coset_interp_scan_operands(inter_eval, inter_prod, values, pt, schedule):
+    """``coset_interp_scan``'s arguments -> ``coset_interp_scan_plain``'s:
+    ev, pr EA (B, C) with chunk 0 at (0, 1), the values gathered to EA (B,
+    deg, C), pt, and the schedule's xs, ws and active mask as tensors on
+    the values' device."""
+    xs, ws, vidx, active = schedule
+    like = values[0][0][0]
+    B = like.shape[0]
+    z1 = qe.zeros((B, 1), like.device)
+    o1 = qe.ones((B, 1), like.device)
+    ev = (qe.concat([z1, inter_eval[0]]), qe.concat([z1, inter_eval[1]]))
+    pr = (qe.concat([o1, inter_prod[0]]), qe.concat([z1, inter_prod[1]]))
+    vidx_t = gl.device_table(vidx, like.device)
+    val = (qe.index(values[0], (Ellipsis, vidx_t)),
+           qe.index(values[1], (Ellipsis, vidx_t)))
+    return (ev, pr, val, pt, gl.const_like(xs, like), gl.const_like(ws, like),
+            gl.device_table(active, like.device))
 
 
 def coset_interp_scan_plain(ev, pr, val, pt, xs, ws, active):
@@ -259,8 +283,6 @@ class CosetInterpolationGate:
         start_eval_point = start_values + n * D
         start_eval_value = start_eval_point + D
         start_intermediates = start_eval_value + D
-        like = wires[0][0]
-        B = like.shape[0]
 
         shift = _w(wires, 0)
         eval_point = (_w(wires, start_eval_point), _w(wires, start_eval_point + 1))
@@ -272,23 +294,12 @@ class CosetInterpolationGate:
         c_shift = qe.ea_add((qe.mul(neg_shift, shifted_pt[0]),
                              qe.mul(neg_shift, shifted_pt[1])), eval_point)
 
-        xs_c, ws_c, vidx, active = self.schedule
-        v0 = _ea_cols(wires, start_values, n)                # ea (B, n)
-        vidx_t = gl.device_table(vidx, like.device)
-        val = (qe.index(v0[0], (Ellipsis, vidx_t)),
-               qe.index(v0[1], (Ellipsis, vidx_t)))          # ea (B, deg, C)
-
+        values = _ea_cols(wires, start_values, n)            # ea (B, n)
         inter_eval = _ea_cols(wires, start_intermediates, ni)
         inter_prod = _ea_cols(wires, start_intermediates + D * ni, ni)
-        z1 = qe.zeros((B, 1), like.device)
-        o1 = qe.ones((B, 1), like.device)
-        ev = (qe.concat([z1, inter_eval[0]]), qe.concat([z1, inter_eval[1]]))
-        pr = (qe.concat([o1, inter_prod[0]]), qe.concat([z1, inter_prod[1]]))
-
         pt = (_col(shifted_pt[0]), _col(shifted_pt[1]))      # ea (B, 1)
-        ev, pr = coset_interp_scan(ev, pr, val, pt, gl.const_like(xs_c, like),
-                                   gl.const_like(ws_c, like),
-                                   gl.device_table(active, like.device))
+        ev, pr = coset_interp_scan(inter_eval, inter_prod, values, pt,
+                                   self.schedule)
 
         out = [qe.stack([c_shift[0], c_shift[1]], axis=-1)]
         if ni:

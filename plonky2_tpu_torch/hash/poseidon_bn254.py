@@ -79,11 +79,19 @@ def consts():
 
 # ---------------------------------------------------------------------------
 # Plain version.  Inside the permutation values stay in a *relaxed* form:
-# limbs 0..14 in [-1, 2^16 + 1], limb 15 unmasked, value in (-p/2^15, 2p).
-# A Montgomery product is then a fixed handful of whole-tensor ops:
-#   T = a (x) b as 32 columns (one outer product), or T = s @ W for the
-#       linear layers (one exact float64 matmul: |columns| < 2^39 < 2^53);
-#   m = T mod R times -p^-1, four carry passes (columns end in [-1, 2^16]);
+# limbs 0..14 in [-1, 2^16 + 1], limb 15 unmasked, value in (-p/2^15, 2p),
+# laid out (16 limbs, elements, lanes): a limb is one contiguous block, so a
+# carry pass works on whole blocks and every matrix product is one 2-D
+# product over the limbs.  A Montgomery product is then a fixed handful of
+# whole-tensor ops:
+#   T = a (x) b as 32 columns (the outer product in float64, then a fixed 0/1
+#       matrix that sums each antidiagonal: |columns| < 2^37), or T = W s for
+#       the linear layers (|columns| < 2^39); both exact below 2^53;
+#   m = T mod R times -p^-1: T's low 16 bits and the rest of each column
+#       times -p^-1's limbs as two exact float64 products (< 2^36 and
+#       < 2^43; torch has no int64 matmul on the GPU), joined in int64 as
+#       sum_i n'_(k-i) T_i (< 2^59); four carry passes (columns end in
+#       [-1, 2^16]);
 #   U = T + m p (float64 matmul, exact); U's low half is a multiple of R and
 #       the carry out of it, sum U_k 2^(16k-256), is an integer < 2^26 that
 #       a float64 dot recovers exactly by rounding;
@@ -101,28 +109,36 @@ _M16 = bn254.MASK
 
 @functools.lru_cache(maxsize=16)
 def _plain_tables(device):
+    """The plain permutation's constants: each matrix multiplies a (limbs,
+    elements x lanes) operand from the left; each vector of limbs is laid
+    out (16, elements, 1) to add to every lane."""
     P = bn254.P
     ninv = (-pow(P, -1, bn254.R)) % bn254.R
     nl = [(ninv >> (16 * k)) & _M16 for k in range(_NL)]
     pl = bn254.P_LIMBS
-    ntoe = np.zeros((_NL, _NL), np.int64)         # m_k = sum_i T_i n'_(k-i)
-    ptoe = np.zeros((_NL, 2 * _NL), np.float64)   # (m p)_k = sum_i m_i p_(k-i)
+    ntoe = np.zeros((_NL, _NL), np.float64)       # m_k = sum_i n'_(k-i) T_i
+    ptoe = np.zeros((2 * _NL, _NL), np.float64)   # (m p)_k = sum_i p_(k-i) m_i
     for i in range(_NL):
         for k in range(i, _NL):
-            ntoe[i, k] = nl[k - i]
+            ntoe[k, i] = nl[k - i]
         for k in range(i, i + _NL):
-            ptoe[i, k] = pl[k - i]
-    carry_w = np.asarray([2.0 ** (16 * k - 256) for k in range(_NL)])
-    q_w = np.asarray([(1 << (16 * k)) / P for k in range(_NL)])
+            ptoe[k, i] = pl[k - i]
+    conv = np.zeros((2 * _NL, _NL * _NL), np.float64)  # a_i b_j -> column i + j
+    for i in range(_NL):
+        for j in range(_NL):
+            conv[i + j, i * _NL + j] = 1.0
+    carry_w = np.asarray([[2.0 ** (16 * k - 256) for k in range(_NL)]])
+    q_w = np.asarray([[(1 << (16 * k)) / P for k in range(_NL)]])
 
     def mat_w(m):
-        """(4 j, 4 i, 16) constant limbs -> (64, 128) float64 with
-        W[j*16 + a, i*32 + k] = M[j][i] limb (k - a)."""
-        w = np.zeros((WIDTH * _NL, WIDTH * 2 * _NL), np.float64)
+        """(4 j, 4 i, 16) constant limbs -> (128, 64) float64 with
+        W[k*4 + i, a*4 + j] = M[j][i] limb (k - a)."""
+        w = np.zeros((2 * _NL * WIDTH, _NL * WIDTH), np.float64)
         for j in range(WIDTH):
             for i in range(WIDTH):
                 for a in range(_NL):
-                    w[j * _NL + a, i * 2 * _NL + a:i * 2 * _NL + a + _NL] = m[j, i]
+                    w[a * WIDTH + i:(a + _NL) * WIDTH + i:WIDTH,
+                      a * WIDTH + j] = m[j, i]
         return w
 
     C = consts()
@@ -130,19 +146,30 @@ def _plain_tables(device):
     def t(x):
         return torch.as_tensor(x, device=device)
 
+    def limbs(x):
+        """Constant limbs (..., elements, 16) -> (..., 16, elements, 1)."""
+        return t(np.ascontiguousarray(np.swapaxes(x, -1, -2)[..., None]))
+
     return dict(
-        ntoe=t(ntoe), ptoe=t(ptoe), carry_w=t(carry_w), q_w=t(q_w),
-        p=t(np.asarray(pl, np.int64)),
+        ntoe=t(ntoe), ptoe=t(ptoe), conv=t(conv), carry_w=t(carry_w),
+        q_w=t(q_w), p=t(np.asarray(pl, np.int64).reshape(_NL, 1, 1)),
         m_w=t(mat_w(C["m_mat"])), p_w=t(mat_w(C["p_mat"])),
         sparse_w=t(np.stack([mat_w(m) for m in C["sparse"]])),
-        ark0=t(C["ark0"]), ark_first=t(C["ark_first"]),
-        ark_second=t(C["ark_second"]), part_c=t(C["part_c"]))
+        ark0=limbs(C["ark0"]), ark_first=limbs(C["ark_first"]),
+        ark_second=limbs(C["ark_second"]),
+        part_c=limbs(C["part_c"][:, None, :]))
+
+
+def _mm(w, x):
+    """w (M, K) times x (K, ...) over its leading axis -> (M, ...)."""
+    return (w @ x.reshape(x.shape[0], -1)).view((w.shape[0],) + x.shape[1:])
 
 
 def _relax(x, passes=3):
-    """Carry passes over limbs 0..14 into 15, in place (value unchanged)."""
-    low = x[..., :_NL - 1]
-    up = x[..., 1:]
+    """Carry passes over limbs 0..14 into 15 (axis 0), in place (value
+    unchanged)."""
+    low = x[:_NL - 1]
+    up = x[1:]
     for _ in range(passes):
         c = low >> 16
         low &= _M16
@@ -151,42 +178,43 @@ def _relax(x, passes=3):
 
 
 def _redc(T, tb):
-    """T (..., 32) columns -> relaxed T * R^-1 (mod p)."""
-    m = (T[..., :_NL, None] * tb["ntoe"]).sum(-2)
+    """T (32, elements, lanes) columns -> relaxed T * R^-1 (mod p), (16,
+    elements, lanes)."""
+    low = T[:_NL]
+    m = ((_mm(tb["ntoe"], (low >> 16).double()).long() << 16)
+         + _mm(tb["ntoe"], (low & _M16).double()).long())
     for _ in range(4):  # mod R: the carry out of limb 15 is dropped
         c = m >> 16
-        m = m & _M16
-        m[..., 1:] += c[..., :-1]
-    U = T + (m.double() @ tb["ptoe"]).long()
-    carry = torch.round(U[..., :_NL].double() @ tb["carry_w"]).long()
-    r = U[..., _NL:].clone()
-    r[..., 0] += carry
-    return _relax(r)
+        m &= _M16
+        m[1:] += c[:-1]
+    U = T + _mm(tb["ptoe"], m.double()).long()
+    U[_NL] += torch.round(_mm(tb["carry_w"], U[:_NL].double())[0]).long()
+    return _relax(U[_NL:])
 
 
-def _conv(a, b):
-    """Product columns of relaxed a, b (..., 16) -> (..., 32)."""
-    o = a[..., :, None] * b[..., None, :]                      # (..., 16, 16)
-    o = torch.nn.functional.pad(o, (0, 2 * _NL + 1 - _NL))     # (..., 16, 33)
-    o = o.reshape(o.shape[:-2] + (-1,))[..., :_NL * 2 * _NL]
-    return o.reshape(o.shape[:-1] + (_NL, 2 * _NL)).sum(-2)
+def _conv(a, b, tb):
+    """Product columns of relaxed a, b (16, elements, lanes) -> (32,
+    elements, lanes)."""
+    o = a.double()[:, None] * b.double()[None]                # (16, 16, ...)
+    return _mm(tb["conv"], o.reshape((_NL * _NL,) + a.shape[1:])).long()
 
 
 def _mul(a, b, tb):
-    return _redc(_conv(a, b), tb)
+    return _redc(_conv(a, b, tb), tb)
 
 
 def _linear(s, w, tb):
-    """out_i = sum_j M[j][i] s_j through the (64, 128) matrix form of M."""
-    flat = s.reshape(s.shape[:-2] + (WIDTH * _NL,)).double()
-    T = (flat @ w).long().reshape(s.shape[:-2] + (WIDTH, 2 * _NL))
-    return _redc(T, tb)
+    """out_i = sum_j M[j][i] s_j through the (128, 64) matrix form of M; s
+    (16, 4, lanes)."""
+    return _redc(_mm(w, s.reshape(_NL * WIDTH, 1, -1).double()).long()
+                 .view(2 * _NL, WIDTH, -1), tb)
 
 
 def _reduce_q(x, tb):
     """Relaxed x (value < ~4p) -> relaxed x - q p with value in [0, 1.02p)."""
-    q = torch.floor(x.double() @ tb["q_w"] - 0.01).long()
-    return _relax(x - q[..., None] * tb["p"])
+    q = torch.floor(_mm(tb["q_w"], x.double()) - 0.01).long()
+    # limbs in (-2^18, 2^17 + 2) before the passes: two carry them back
+    return _relax(x - q * tb["p"], passes=2)
 
 
 def _exp5(x, tb):
@@ -199,18 +227,21 @@ def permute_plain(state):
     """Torch permutation; state (..., 4, 16) int64 canonical Montgomery
     limbs -> the same, bit-exact with the reference."""
     tb = _plain_tables(state.device)
-    s = _reduce_q(state + tb["ark0"], tb)
+    lead = state.shape[:-2]
+    s = state.reshape(-1, WIDTH, _NL).permute(2, 1, 0).contiguous()
+    s = _reduce_q(s + tb["ark0"], tb)                       # (16, 4, lanes)
     for r in range(FULL_ROUNDS // 2):
         w = tb["p_w"] if r == FULL_ROUNDS // 2 - 1 else tb["m_w"]
         s = _reduce_q(_exp5(s, tb) + tb["ark_first"][r], tb)
         s = _reduce_q(_linear(s, w, tb), tb)
     for r in range(PARTIAL_ROUNDS):
-        s0 = _reduce_q(_exp5(s[..., 0:1, :], tb) + tb["part_c"][r], tb)
-        s = _reduce_q(_linear(torch.cat([s0, s[..., 1:, :]], dim=-2),
+        s0 = _reduce_q(_exp5(s[:, 0:1], tb) + tb["part_c"][r], tb)
+        s = _reduce_q(_linear(torch.cat([s0, s[:, 1:]], dim=1),
                               tb["sparse_w"][r], tb), tb)
     for r in range(FULL_ROUNDS // 2):
         s = _reduce_q(_exp5(s, tb) + tb["ark_second"][r], tb)
         s = _reduce_q(_linear(s, tb["m_w"], tb), tb)
+    s = s.permute(2, 1, 0).reshape(lead + (WIDTH, _NL))
     limbs, _ = bn254._normalize(s)  # value in [0, 1.02p): no carry out
     return bn254._cond_sub_p(limbs)
 

@@ -34,6 +34,7 @@ _I = ctypes.c_int
 _U64 = ctypes.c_uint64
 _DESC = ctypes.POINTER(ctypes.c_longlong)  # a host array of int64 words
 _U64S = ctypes.POINTER(ctypes.c_uint64)  # a host array of u64 constants
+_INTS = ctypes.POINTER(ctypes.c_int)  # a host array of ints
 _SIGNATURES = {
     "p2t_poseidon_bn254_n_const": [],
     "p2t_poseidon_bn254_permute": [_P, _P, _P, _P, _I, _P],
@@ -48,7 +49,8 @@ _SIGNATURES = {
     "p2t_gl_mul": [_DESC, _P, _P],
     "p2t_gl_mul_const": [_DESC, _I, _U64, _U64S, _I, _I, _P, _P],
     "p2t_qe_mul": [_DESC, _I, _P, _P],
-    "p2t_coset_interp_scan": [_DESC, _P, _P],
+    "p2t_coset_interp_scan": [_DESC, _U64S, _U64S, _INTS, _I, _I, _I, _P,
+                              _P],
 }
 
 

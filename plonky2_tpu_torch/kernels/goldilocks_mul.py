@@ -14,7 +14,10 @@ kernels in ``csrc/goldilocks_mul.cu``.
   behind ``fields/goldilocks_ext.mul`` and ``mul_add``;
 - ``coset_interp_scan``: the interpolation gate's chunk steps (JAX: the
   ``jax.lax.scan`` of ``plonky2_tpu/gates/gates.py``
-  CosetInterpolationGate.eval), behind ``gates/gates.coset_interp_scan``.
+  CosetInterpolationGate.eval, and the gather of its values), behind
+  ``gates/gates.coset_interp_scan``: the operands are the gate's wire
+  columns, read by their strides, and the gate's host schedule goes into
+  the launch by value (``scan_cells``).
 
 Under ``jit`` the JAX package runs each product as one fused loop on its
 device; the port's plain versions issue some 146 int64 torch ops a product.
@@ -50,6 +53,8 @@ from . import build
 
 MAX_DIMS = 4  # csrc/strided.cuh MAX_DIMS
 MAX_BITS = 64  # csrc/goldilocks_mul.cu MAX_BITS
+MAX_SCAN_LOG_SEG = 5  # csrc/goldilocks_mul.cu SCAN_MAX_LOG_SEG
+MAX_SCAN_CELLS = 128  # SCAN_MAX_CELLS
 
 
 def broadcast_layout(shapes, strides):
@@ -190,50 +195,91 @@ def _ea(planes):
             ((planes[4], planes[5]), (planes[6], planes[7])))
 
 
-def _frame_strides(t, frame, axes):
-    """t's element strides over the scan's (lane, step, chunk) frame: t's
-    axes are ``axes`` of the frame, in order; 0 along any other axis or
-    where t broadcasts."""
-    out = [0, 0, 0]
-    for size, stride, ax in zip(t.shape, t.stride(), axes):
-        if size != 1:
-            if size != frame[ax]:
-                raise ValueError(f"interpolation scan: shape {tuple(t.shape)}"
-                                 f" against the frame {frame}")
-            out[ax] = stride
-    return out
+def scan_cells(schedule):
+    """The interpolation gate's host schedule (``CosetInterpolationGate
+    .schedule``: xs, ws as GL (lo, hi) numpy pairs (deg, C), value indices
+    and the active mask, numpy (deg, C)) -> (x, w, col, log_seg): the scan
+    kernel's cells c S + j, S = 2^log_seg >= deg, as flat uint64, uint64
+    and int32 arrays; col is the step's value column, -1 where the step is
+    inactive or j >= deg."""
+    xs, ws, vidx, active = schedule
+    active = np.asarray(active, dtype=bool)
+    deg, chunks = active.shape
+    log_seg = (deg - 1).bit_length()  # S: the least power of two >= deg
+    if log_seg > MAX_SCAN_LOG_SEG or chunks << log_seg > MAX_SCAN_CELLS:
+        raise ValueError(f"interpolation scan: {deg} steps x {chunks} chunks,"
+                         f" the kernel takes segments of at most "
+                         f"{1 << MAX_SCAN_LOG_SEG} steps and "
+                         f"{MAX_SCAN_CELLS} cells")
+    seg = 1 << log_seg
+
+    def cells(values, fill, dtype):
+        out = np.full((chunks, seg), fill, dtype=dtype)
+        out[:, :deg] = np.asarray(values).T
+        return out.reshape(-1)
+
+    def join(pair):
+        lo, hi = (np.asarray(h, dtype=np.int64).astype(np.uint64)
+                  for h in pair)
+        return lo | (hi << np.uint64(32))
+
+    col = np.where(active, np.asarray(vidx, dtype=np.int64), -1)
+    return (cells(join(xs), 0, np.uint64), cells(join(ws), 0, np.uint64),
+            cells(col, -1, np.int32), log_seg)
 
 
-def coset_interp_scan(ev, pr, val, pt, xs, ws, active):
-    """The interpolation gate's chunk steps (gates/gates.py
-    ``coset_interp_scan_plain``): ev, pr EA (B, C); val EA (B, deg, C); pt
-    EA broadcastable to (B, C); xs, ws GL (deg, C); active bool (deg, C) ->
-    (ev, pr) EA (B, C)."""
-    state = _ea_planes(ev) + _ea_planes(pr)
-    planes = state + _ea_planes(val) + _ea_planes(pt) + list(xs) + list(ws)
+def scan_strides(inter_eval, inter_prod, values, pt, chunks):
+    """(lanes, per plane (strides over (lane, column))) of the scan's
+    operands, in the kernel's plane order: the intermediates' 16 planes (B,
+    chunks - 1), pt's 8 (B, 1) or (B, chunks), the values' 8 (B, n); a
+    stride is 0 along an axis of size 1.  Raises ValueError for other
+    shapes."""
+    groups = [(_ea_planes(inter_eval) + _ea_planes(inter_prod),
+               (chunks - 1,), "intermediates"),
+              (_ea_planes(pt), (1, chunks), "point"),
+              (_ea_planes(values), None, "values")]
+    lanes = values[0][0][0].shape[0] if values[0][0][0].dim() else 0
+    out = []
+    for planes, widths, what in groups:
+        for t in planes:
+            if (t.dim() != 2 or t.shape[0] not in (1, lanes)
+                    or (widths is not None and t.shape[1] not in widths)):
+                raise ValueError(f"interpolation scan: {what} of shape "
+                                 f"{tuple(t.shape)} for {lanes} lanes and "
+                                 f"{chunks} chunks")
+            out.append(tuple(0 if n == 1 else st
+                             for n, st in zip(t.shape, t.stride())))
+    return lanes, out
+
+
+def coset_interp_scan(inter_eval, inter_prod, values, pt, schedule):
+    """The interpolation gate's chunk steps from its wires
+    (``gates/gates.coset_interp_scan``): inter_eval, inter_prod EA (B,
+    C - 1), the starts of chunks 1 .. C - 1 (chunk 0 starts at ev = 0, pr =
+    1); values EA (B, n), the gate's value columns; pt EA (B, 1) or (B, C);
+    schedule: the gate's host schedule (numpy, ``scan_cells``), passed by
+    value in the launch -> (ev, pr) EA (B, C)."""
+    planes = (_ea_planes(inter_eval) + _ea_planes(inter_prod)
+              + _ea_planes(pt) + _ea_planes(values))
     device = _check(planes, "interpolation scan")
-    if active.dtype != torch.bool or active.device != device:
-        raise ValueError(f"interpolation scan: active must be bool on "
-                         f"{device}, got {active.dtype} on {active.device}")
-    lanes, chunks = np.broadcast_shapes(*(t.shape for t in state))
-    deg = xs[0].shape[0]
-    frame = (lanes, deg, chunks)
-    words = [lanes, deg, chunks]
-    layout = ([(t, (0, 2)) for t in state]
-              + [(t, (0, 1, 2)) for t in _ea_planes(val)]
-              + [(t, (0, 2)) for t in _ea_planes(pt)]
-              + [(t, (1, 2)) for t in list(xs) + list(ws) + [active]])
-    for t, axes in layout:
-        if t.dim() != len(axes):
-            raise ValueError(f"interpolation scan: shape {tuple(t.shape)} "
-                             f"has not {len(axes)} axes")
-        words += [t.data_ptr(), *_frame_strides(t, frame, axes)]
+    x, w, col, log_seg = scan_cells(schedule)
+    chunks = len(col) >> log_seg
+    lanes, strides = scan_strides(inter_eval, inter_prod, values, pt, chunks)
+    if col.max(initial=-1) >= values[0][0][0].shape[1]:
+        raise ValueError(f"interpolation scan: value column {col.max()} of "
+                         f"{values[0][0][0].shape[1]}")
     out = torch.empty((16, lanes, chunks), dtype=torch.int64, device=device)
-    if lanes * chunks:
+    if lanes:
+        words = [v for t, st in zip(planes, strides)
+                 for v in (t.data_ptr(), *st)]
         desc = (ctypes.c_longlong * len(words))(*words)
+        args = (desc, (ctypes.c_uint64 * len(x))(*x.tolist()),
+                (ctypes.c_uint64 * len(w))(*w.tolist()),
+                (ctypes.c_int * len(col))(*col.tolist()), lanes, chunks,
+                log_seg)
         with torch.cuda.device(device):
             rc = build.library().p2t_coset_interp_scan(
-                desc, out.data_ptr(), build.stream_handle(device))
+                *args, out.data_ptr(), build.stream_handle(device))
         build.check(rc, "interpolation scan launch")
         coset_interp_scan.launches += 1
     planes = out.unbind(0)

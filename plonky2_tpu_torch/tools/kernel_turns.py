@@ -20,8 +20,12 @@ shapes, and the product by a constant (``csrc/goldilocks_mul.cu``) at its
 plain form's largest call and at FRI's three bit-selected calls (subgroup_x
 and each round's cosetStart: one launch of ``goldilocks.mul_const_bits``
 where the tree has it, else the loop of a product by a constant and a select
-a bit that it replaced), each in a CUDA graph of 20 calls (the mean of 3
-replays), since one launch takes a few microseconds; digests each kernel's
+a bit that it replaced), and the interpolation gate's scan on the step
+fixture's gate at 256 lanes (3 chunks of 6 steps; ``coset_interp_scan``
+with the gate's host schedule where the tree has it, else with the
+tensors the gate gathered for it before), each in a CUDA graph of 20 calls
+(the mean of 3 replays), since one launch takes a few microseconds;
+digests each kernel's
 SASS (``cuobjdump -sass``; equal digests mean the same machine code), the
 transcript's output and the chains' and products' outputs; and keeps
 ``ptxas -v``'s lines of the build.  The same seed gives every process the
@@ -75,6 +79,8 @@ BITS_CALLS = [("subgroup_x", False, 7, 0, LDE_BITS),
               ("coset_start_1", True, 1, 4, 4)]
 # The plain product by a constant at its largest call, (256, 44) by DTH_ROOT.
 CONST_SHAPE = (256, 44)
+# The interpolation scan's lanes: a step batch's.
+SCAN_LANES = 256
 # kernel key -> a substring of its mangled name only it has
 KERNELS = {"poseidon_bn254": "poseidon_bn254_kernel",
            "poseidon_bn254_cios": "poseidon_bn254_cios_kernel",
@@ -82,7 +88,8 @@ KERNELS = {"poseidon_bn254": "poseidon_bn254_kernel",
            "qe_horner": "qe_horner_kernel",
            "qe_powers": "qe_powers_kernel",
            "qe_inv": "qe_inv_kernel",
-           "gl_mul_const": "gl_mul_const_kernel"}
+           "gl_mul_const": "gl_mul_const_kernel",
+           "coset_interp_scan": "coset_interp_scan_kernel"}
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 
 
@@ -187,6 +194,30 @@ def bits_call(gl, a, c, idx, bits, off, table):
     return loop
 
 
+def scan_call(G, gl, qe, gate, inter_eval, inter_prod, values, pt):
+    """The interpolation scan in the tree's own form: ``coset_interp_scan``
+    with the gate's host schedule where it takes one, else with the chunks'
+    starts, the gathered values and the schedule as tensors, made here, as
+    the gate made them before the call."""
+    import inspect
+
+    if "schedule" in inspect.signature(G.coset_interp_scan).parameters:
+        return lambda: G.coset_interp_scan(inter_eval, inter_prod, values, pt,
+                                           gate.schedule)
+    xs, ws, vidx, active = gate.schedule
+    like = values[0][0][0]
+    B = like.shape[0]
+    z1, o1 = qe.zeros((B, 1), like.device), qe.ones((B, 1), like.device)
+    ev = (qe.concat([z1, inter_eval[0]]), qe.concat([z1, inter_eval[1]]))
+    pr = (qe.concat([o1, inter_prod[0]]), qe.concat([z1, inter_prod[1]]))
+    vidx_t = gl.device_table(vidx, like.device)
+    val = (qe.index(values[0], (Ellipsis, vidx_t)),
+           qe.index(values[1], (Ellipsis, vidx_t)))
+    args = (ev, pr, val, pt, gl.const_like(xs, like), gl.const_like(ws, like),
+            gl.device_table(active, like.device))
+    return lambda: G.coset_interp_scan(*args)
+
+
 def turn_order(n_trees):
     """Trees in the order 0, 1, ..., k, k, ..., 1, 0; tree 0 once alone."""
     up = list(range(n_trees))
@@ -198,6 +229,8 @@ def _child():
 
     from plonky2_tpu_torch.fields import bn254
     from plonky2_tpu_torch.fields import goldilocks as gl
+    from plonky2_tpu_torch.fields import goldilocks_ext as qe
+    from plonky2_tpu_torch.gates import gates as G
     from plonky2_tpu_torch.kernels import build
     from plonky2_tpu_torch.kernels import goldilocks_ext as kq
     from plonky2_tpu_torch.kernels import poseidon_bn254 as kb
@@ -310,6 +343,14 @@ def _child():
     prod_out.append(gl.mul_const(a44, gl.DTH_ROOT))
     ms["gl_mul_const@256x44"] = [graph_ms(
         lambda: gl.mul_const(a44, gl.DTH_ROOT))]
+    gate, = [g for g in spec.gates() if isinstance(g, G.CosetInterpolationGate)]
+    ni, chunks = gate.num_intermediates, 1 + gate.num_intermediates
+    ea = [(qe_vals((SCAN_LANES, n)), qe_vals((SCAN_LANES, n)))
+          for n in (ni, ni, gate.num_points, 1)]
+    fn = scan_call(G, gl, qe, gate, *ea)
+    prod_out.append(fn())
+    ms[f"coset_interp_scan@{SCAN_LANES}x{chunks}x{gate.degree}"] = [
+        graph_ms(fn)]
     prod_digest = hashlib.sha256(b"".join(
         t.cpu().numpy().tobytes()
         for t in torch.utils._pytree.tree_leaves(prod_out))).hexdigest()[:16]

@@ -9,7 +9,8 @@ same inputs, the wrappers' broadcast layout, and their contract on the CPU.
   ``plonky2_tpu.fields.goldilocks_ext.mul`` / ``mul_add``, at the call
   sites' broadcast shapes and strided views (B=3), with every pair of the
   edge values 0, 1, p-1, 2^32-1, 2^32 and p-2^32;
-- ``gates.coset_interp_scan_plain``, through
+- ``gates.coset_interp_scan_plain``, and the scan kernel's order
+  (``test_torch_coset_scan.segment_scan``), through
   ``CosetInterpolationGate(4, 6, weights).eval``, against the JAX gate's
   ``eval`` (whose chunk steps are a ``jax.lax.scan``) on the same wires,
   with the step fixture's barycentric weights and the test vector's;
@@ -232,21 +233,36 @@ def test_coset_interp_scan_plain_matches_reference_gate(gate_inputs, weights):
     assert _eq(got, reference(w))
 
 
+@pytest.mark.parametrize("weights", ["step", "test_vector"])
+def test_scan_kernels_order_matches_reference_gate(gate_inputs, weights,
+                                                    monkeypatch):
+    """The gate with its chunk steps in the scan kernel's order (segment
+    prefix and suffix products, xor-shuffle sums, the masked tail:
+    ``test_torch_coset_scan.segment_scan``) against the JAX gate, whose
+    steps are a ``jax.lax.scan``."""
+    from test_torch_coset_scan import segment_scan
+    monkeypatch.setattr(G, "coset_interp_scan", segment_scan)
+    w = _step_fixture_weights() if weights == "step" else TEST_WEIGHTS
+    (consts, wires, pih), reference = gate_inputs
+    got = G.CosetInterpolationGate(4, 6, w).eval(_tq(consts), _tq(wires),
+                                                 tsplit(pih))
+    assert _eq(got, reference(w))
+
+
 def test_coset_interp_scan_dispatches_to_its_plain_version_on_the_cpu():
     gate = G.CosetInterpolationGate(4, 6, TEST_WEIGHTS)
-    xs, ws, _, active = gate.schedule
     rng = np.random.default_rng(8)
-    C = 1 + gate.num_intermediates
+    ni = gate.num_intermediates
 
     def ea(shape):
         return tuple(tuple(tsplit(rand_gl(rng, shape)) for _ in range(2))
                      for _ in range(2))
 
-    args = (ea((B, C)), ea((B, C)), ea((B, 6, C)), ea((B, 1)),
-            tuple(map(torch.as_tensor, xs)), tuple(map(torch.as_tensor, ws)),
-            torch.as_tensor(active))
+    args = (ea((B, ni)), ea((B, ni)), ea((B, gate.num_points)), ea((B, 1)),
+            gate.schedule)
     launches.reset()
-    got, want = G.coset_interp_scan(*args), G.coset_interp_scan_plain(*args)
+    got = G.coset_interp_scan(*args)
+    want = G.coset_interp_scan_plain(*G.coset_interp_scan_operands(*args))
     leaves = torch.utils._pytree.tree_leaves
     assert all(torch.equal(g, w) for g, w in zip(leaves(got), leaves(want)))
     assert set(launches.read().values()) == {0}
@@ -341,10 +357,9 @@ def _zeros_ea(shape, d):
 
 
 def _scan_args(d):
-    return (_zeros_ea((B, 3), d), _zeros_ea((B, 3), d),
-            _zeros_ea((B, 6, 3), d), _zeros_ea((B, 1), d),
-            gl.zeros((6, 3), d), gl.zeros((6, 3), d),
-            torch.ones((6, 3), dtype=torch.bool, device=d))
+    gate = G.CosetInterpolationGate(4, 6, TEST_WEIGHTS)
+    return (_zeros_ea((B, 2), d), _zeros_ea((B, 2), d),
+            _zeros_ea((B, 16), d), _zeros_ea((B, 1), d), gate.schedule)
 
 
 @pytest.mark.parametrize("wrapper", ["gl_mul", "gl_mul_const", "qe_mul",

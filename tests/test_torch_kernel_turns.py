@@ -95,3 +95,68 @@ def test_bits_table_matches_the_fri_loops():
     assert kt.bits_table(gl, "subgroup_x", 16) == gl.bitrev_powers(root, 16)
     g_inv = pow(gl.primitive_root_of_unity(4), 15, gl.P)
     assert kt.bits_table(gl, "coset_start_1", 4) == gl.bitrev_powers(g_inv, 4)
+
+
+def test_scan_call_takes_each_trees_form_with_equal_outputs():
+    """A tree whose ``coset_interp_scan`` takes the host schedule gets it; an
+    earlier tree's (the chunks' starts, the gathered values and the
+    schedule as tensors) gets those, made as its gate made them: the same
+    outputs either way (here both run the plain scan on the CPU)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from plonky2_tpu_torch.fields import goldilocks as gl
+    from plonky2_tpu_torch.fields import goldilocks_ext as qe
+    from plonky2_tpu_torch.gates import gates as G
+
+    gate = G.CosetInterpolationGate(4, 6, list(range(1, 17)))
+    rng = np.random.default_rng(3)
+
+    def ea(n):
+        return tuple(tuple(tuple(t.reshape(4, n) for t in gl.split_u64(
+            rng.integers(0, gl.P, size=(4, n), dtype=np.uint64)))
+            for _ in range(2)) for _ in range(2))
+
+    args = (ea(2), ea(2), ea(16), ea(1))
+    new = kt.scan_call(G, gl, qe, gate, *args)()
+    old_tree = types.SimpleNamespace(
+        coset_interp_scan=G.coset_interp_scan_plain)
+    old = kt.scan_call(old_tree, gl, qe, gate, *args)()
+    leaves = torch.utils._pytree.tree_leaves
+    assert len(leaves(new)) == len(leaves(old)) == 16
+    assert all(torch.equal(a, b) for a, b in zip(leaves(new), leaves(old)))
+
+
+def test_plain_turns_times_the_plain_permutation():
+    """``tools/plain_turns`` on this tree alone at two lanes: one process,
+    a median a lane count (the turns across trees are ``turn_order``'s)."""
+    import json
+    import subprocess
+    import sys
+
+    from plonky2_tpu_torch.tools import plain_turns as pt
+
+    out = subprocess.run(
+        [sys.executable, "-m", "plonky2_tpu_torch.tools.plain_turns",
+         "--lanes", "2", "--reps", "1"],
+        cwd=pt.REPO, capture_output=True, text=True, check=True)
+    lines = [json.loads(x) for x in out.stdout.strip().splitlines()]
+    assert [r["tree"] for r in lines[:-1]] == [0]
+    summary = lines[-1]["per_tree"]
+    assert list(summary) == ["0"] and set(summary["0"]["median_s"]) == {"2"}
+    assert summary["0"]["tree_0_over_this"] == {"2": 1.0}
+
+
+def test_plain_turns_summary_takes_medians():
+    from plonky2_tpu_torch.tools import plain_turns as pt
+
+    runs = [{"tree": 0, "seconds": {"8": [3.0, 1.0]}},
+            {"tree": 1, "seconds": {"8": [1.0]}},
+            {"tree": 1, "seconds": {"8": [2.0]}},
+            {"tree": 0, "seconds": {"8": [2.0]}}]
+    got = pt.summarize(runs)
+    assert got[0]["median_s"] == {"8": 2.0}
+    assert got[1]["median_s"] == {"8": 2.0}
+    assert got[1]["tree_0_over_this"] == {"8": 1.0}

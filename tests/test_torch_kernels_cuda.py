@@ -417,32 +417,117 @@ def _coset_gate(fixture):
     return gate
 
 
-@pytest.mark.parametrize("fixture", ["step", "decode_block"])
-@pytest.mark.parametrize("lanes", [256, 1, 31, 33, 255, 257])
-def test_coset_interp_scan_kernel_matches_plain(dev, fixture, lanes):
-    """On the card the plain scan's products would go through the product
-    kernels, so the kernel is held against ``coset_interp_scan_plain`` run
-    on CPU copies of the same inputs."""
-    gate = _coset_gate(fixture)
-    xs, ws, _, active = gate.schedule
-    C, deg = 1 + gate.num_intermediates, gate.degree
+def _scan_case(case, lanes, dev, seed=0):
+    """The scan's arguments on ``dev`` (random EA values, lanes 0 to 5
+    holding the edge values in every coordinate, lanes 6 to 8 a point equal
+    to a domain point: a zero t) and the host schedule
+    (``test_torch_coset_scan.scan_inputs``)."""
+    from test_torch_coset_scan import scan_inputs, torch_ea
+    coords, schedule = scan_inputs(case, lanes, seed)
+    args = tuple(torch_ea(c) for c in coords)
+    return _on(args, dev), schedule
 
-    def ea(shape, seed):
-        return (_qe(_qe_vals(shape, seed), dev),
-                _qe(_qe_vals(shape, seed + 1), dev))
 
-    args = (ea((lanes, C), 40), ea((lanes, C), 42), ea((lanes, deg, C), 44),
-            ea((lanes, 1), 46),
-            tuple(torch.as_tensor(t, device=dev) for t in xs),
-            tuple(torch.as_tensor(t, device=dev) for t in ws),
-            torch.as_tensor(active, device=dev))
-    got, n = _counted(km.coset_interp_scan, lambda: G.coset_interp_scan(*args))
-    want = G.coset_interp_scan_plain(*_cpu(args))
-    torch.cuda.synchronize()
+def _on(x, dev):
+    return torch.utils._pytree.tree_map(lambda t: t.to(dev), x)
+
+
+def _scan_plain(args, schedule):
+    """The plain scan on CPU copies (on the card its products would go
+    through the product kernels)."""
+    return G.coset_interp_scan_plain(
+        *G.coset_interp_scan_operands(*_cpu(args), schedule))
+
+
+def _leaves_equal(got, want):
     leaves = torch.utils._pytree.tree_leaves
-    assert n == 1
-    assert all(g.shape == w.shape and torch.equal(g.cpu(), w)
+    return all(g.shape == w.shape and torch.equal(g.cpu(), w.cpu())
                for g, w in zip(leaves(got), leaves(want)))
+
+
+# Both fixtures' gate at the main path's 256 lanes and lane counts off the
+# 64-thread block (8 segments of 8); a gate of degree 5, gates of one chunk
+# (degree 8; degree 32, a segment of a whole warp), a schedule of degree 1
+# and one whose mask is not a prefix.
+SCAN_CASES = ([(f, n) for f in ("step", "decode_block")
+               for n in (256, 1, 31, 33, 255, 257)]
+              + [(c, n) for c in ("gate-4-5", "gate-3-8", "gate-5-32", "deg1",
+                                  "deg3-mask") for n in (9, 257)])
+
+
+@pytest.mark.parametrize("case, lanes", SCAN_CASES)
+def test_coset_interp_scan_kernel_matches_plain(dev, case, lanes):
+    args, schedule = _scan_case(case, lanes, dev)
+    got, n = _counted(km.coset_interp_scan,
+                      lambda: G.coset_interp_scan(*args, schedule))
+    want = _scan_plain(args, schedule)
+    torch.cuda.synchronize()
+    assert n == 1 and _leaves_equal(got, want)
+
+
+@pytest.mark.parametrize("fixture", ["step", "decode_block"])
+def test_coset_interp_scan_kernel_reads_views_as_contiguous_copies(dev,
+                                                                   fixture):
+    """The gate's operands are views of wire columns (every other column,
+    a column broadcast over the chunks) and a transposed view: the same
+    outputs as contiguous copies."""
+    gate = _coset_gate(fixture)
+    ni, n = gate.num_intermediates, gate.num_points
+    wires = _qe(_qe_vals((256, 135), seed=52), dev)
+    cols = G._ea_cols
+    inter_eval, inter_prod = cols(wires, 37, ni), cols(wires, 41, ni)
+    values = (_strided(cols(wires, 1, n)[0]), cols(wires, 1, n)[1])
+    pt = tuple(qe.index(c, (Ellipsis, slice(45, 46))) for c in (wires, wires))
+    args = (inter_eval, inter_prod, values, pt)
+    dense = torch.utils._pytree.tree_map(lambda t: t.contiguous(), args)
+    assert not values[0][0][0].is_contiguous()
+    got = km.coset_interp_scan(*args, gate.schedule)
+    want = km.coset_interp_scan(*dense, gate.schedule)
+    torch.cuda.synchronize()
+    assert _leaves_equal(got, want)
+    assert _leaves_equal(got, _scan_plain(args, gate.schedule))
+
+
+def test_coset_interp_scan_kernel_is_captured_in_a_graph(dev):
+    """Captured once, the launch replays on new values written into its
+    inputs, with the schedule it was captured with."""
+    gate = _coset_gate("step")
+    args, schedule = _scan_case("step", 256, dev, seed=1)
+    fresh, _ = _scan_case("step", 256, dev, seed=2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        km.coset_interp_scan(*args, gate.schedule)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = km.coset_interp_scan(*args, gate.schedule)
+    leaves = torch.utils._pytree.tree_leaves
+    for t, f in zip(leaves(args), leaves(fresh)):
+        t.copy_(f)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _leaves_equal(out, _scan_plain(fresh, schedule))
+
+
+def test_coset_interp_scan_kernel_checks_its_operands(dev):
+    args, schedule = _scan_case("step", 4, dev)
+    inter_eval, inter_prod, values, pt = args
+    narrow = ((values[0][0][0].int(), values[0][0][1]), values[0][1])
+    with pytest.raises(ValueError):
+        km.coset_interp_scan(inter_eval, inter_prod, (narrow, values[1]), pt,
+                             schedule)
+    with pytest.raises(ValueError):  # planes on two devices
+        km.coset_interp_scan(inter_eval, _cpu(inter_prod), values, pt,
+                             schedule)
+    with pytest.raises(ValueError):  # a value column past the values
+        km.coset_interp_scan(inter_eval, inter_prod,
+                             _on(tuple(qe.index(c, (Ellipsis, slice(0, 8)))
+                                       for c in values), dev), pt, schedule)
+    empty = _on(torch.utils._pytree.tree_map(lambda t: t[:0], args), dev)
+    out, n = _counted(km.coset_interp_scan,
+                      lambda: km.coset_interp_scan(*empty, schedule))
+    assert n == 0 and out[0][0][0][0].shape == (0, 3)
 
 
 @pytest.mark.parametrize("fixture", ["step", "decode_block"])
