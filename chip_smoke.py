@@ -78,9 +78,22 @@
    with its warm-up and capture, and the peak device memory with the graphs
    held;
 7. stage times of the step batch (tools/profile_verify, eager) under both
-   settings; one eager step batch under torch.profiler under each setting:
-   kernel launches seen on the device, the device's busy share of the wall,
-   and each hand-written kernel's device time per batch;
+   settings; then, in turns mxu, cios, cios, mxu, the probe on the
+   compiled path: the transcript, plonk and fri phases each captured in its
+   own CUDA graph (tools/profile_verify --mode phases: capture, first,
+   best and median replay and CUDA-event times, plonk_only and fri_only,
+   the whole graph beside them, peak memory), whose plonk and fri outputs
+   must equal the compiled verifier's plonk_ok and fri_ok on every lane and
+   whose replays must launch each phase's kernels (transcript: the sponge
+   and the transcript; plonk: those and 5 QE Horner, 1 inverse, 4, 12 and
+   128 products and the scan; fri: those and 63 Poseidon-BN254, 3 Horner,
+   2 powers, 6 inverse, 12, 5 and 26 products), and the host stages of a
+   replayed verify_batch (--mode replayed: observed, convert, copy_in,
+   replay, outputs, read_back, mask) beside the call without the timer,
+   whose verdicts must be the expected ones; one eager step batch under
+   torch.profiler under each setting: kernel launches seen on the device,
+   the device's busy share of the wall, and each hand-written kernel's
+   device time per batch;
 8. the soundness matrix on step (tools/soundness_matrix) under both
    settings: lane 0 True, every other lane False, with its launch counts;
 9. the command line: ``verify`` on decode_block and ``bench`` on step B=256
@@ -148,6 +161,7 @@ from plonky2_tpu_torch.proof.fixtures import (corrupt_wires_opening,
 from plonky2_tpu_torch.tools import (dist_worker, micro_pb, profile_verify,
                                      scaling_bench, soundness_matrix)
 from plonky2_tpu_torch.transcript import challenger as chal
+from plonky2_tpu_torch.utils.profiling import device_kernels
 
 TESTDATA = Path(__file__).resolve().parent / "testdata"
 STEP_BATCH = 256
@@ -230,6 +244,20 @@ PRODUCT_LAUNCHES = {
     "decode_block": {"gl_mul": 16, "gl_mul_const": 17, "qe_mul": 153,
                      "coset_interp_scan": 1}}
 REPLAYS = 5
+# The kernels one replay of each phase graph of tools/profile_verify
+# launches on step (the profiler counts the public-input sponge under the
+# transcript kernel): the transcript phase the sponge and the transcript;
+# plonk and fri each that, then its own (counted on the CPU through each
+# wrapper's arithmetic, the dispatch forced).  plonk + fri - transcript is
+# one verification's (profiled_launches).
+PHASE_LAUNCHES = {
+    "transcript": {"poseidon_gl_transcript": 2},
+    "plonk": {"poseidon_gl_transcript": 2, "qe_horner": 5, "qe_inv": 1,
+              "gl_mul": 4, "gl_mul_const": 12, "qe_mul": 128,
+              "coset_interp_scan": 1},
+    "fri": {"bn254": STEP_BN254_LAUNCHES, "poseidon_gl_transcript": 2,
+            "qe_horner": 3, "qe_powers": 2, "qe_inv": 6, "gl_mul": 12,
+            "gl_mul_const": 5, "qe_mul": 26}}
 # A step replay issued 367,045 device events while the chains and the
 # public-input hash still ran as plain torch, and 61,926 with them on the
 # card and the products plain, 9,268 with the products on the card before
@@ -1183,34 +1211,21 @@ def profile_batch(impl, fn):
     launches below 8448 lanes, its lane kernel the larger ones.  The
     public-input sponge is a launch of the transcript kernel and counts
     under poseidon_gl_transcript."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    names = dict(kernel_launches.DEVICE_NAMES,
+                 poseidon_bn254_cios_group="poseidon_bn254_cios_kernel_group",
+                 poseidon_bn254_cios_lane="poseidon_bn254_cios_kernel_lane")
+    with pb.use_impl(impl):
+        return device_kernels(fn, torch.device("cuda", 0), names)
 
-    names = {"poseidon_bn254": "poseidon_bn254_kernel",
-             "poseidon_bn254_cios": "poseidon_bn254_cios_kernel",
-             "poseidon_bn254_cios_group": "poseidon_bn254_cios_kernel_group",
-             "poseidon_bn254_cios_lane": "poseidon_bn254_cios_kernel_lane",
-             "poseidon_gl_transcript": "transcript_kernel",
-             "qe_horner": "qe_horner_kernel", "qe_powers": "qe_powers_kernel",
-             "qe_inv": "qe_inv_kernel", "gl_mul": "gl_mul_kernel",
-             "gl_mul_const": "gl_mul_const_kernel",
-             "qe_mul": "qe_mul_kernel",
-             "coset_interp_scan": "coset_interp_scan_kernel"}
-    torch.cuda.synchronize()
-    with pb.use_impl(impl), profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in on_device) / 1e6
-    per_kernel = {}
-    for key, needle in names.items():
-        hits = [e for e in on_device if needle in e.name]
-        per_kernel[key] = (len(hits),
-                           sum(e.time_range.elapsed_us() for e in hits) / 1e6)
-    return wall, len(on_device), busy, per_kernel
+
+def phase_launches(phase, impl):
+    """The kernel launches torch.profiler sees in one replay of ``phase``'s
+    graph on step under ``impl``, every kernel of the path named."""
+    used = "poseidon_bn254_cios" if impl == "cios" else "poseidon_bn254"
+    want = {k: 0 for k in kernel_launches.DEVICE_NAMES}
+    for key, n in PHASE_LAUNCHES[phase].items():
+        want[used if key == "bn254" else key] = n
+    return want
 
 
 def eager(spec, batch, dev, query_shard=None):
@@ -1320,6 +1335,91 @@ def compiled_checks(impl, dev, card, spec_step, batch_step, expected,
     return per_kernel, {"wall_s": wall, "device_events": n_dev,
                         "busy_s": busy, "graph_median_s":
                         float(np.median(graph_only))}
+
+
+def phase_probe(dev, card, spec_step, batch_step, expected):
+    """tools/profile_verify's phases and replayed modes on the step batch
+    under mxu, cios, cios, mxu: the plonk and fri phase graphs' outputs must
+    equal the compiled verifier's plonk_ok and fri_ok on every lane, the
+    probes' verdicts ``expected``, and one replay of each phase must launch
+    ``phase_launches`` (of the whole graph, ``profiled_launches``).
+    Returns each setting's {phase: {kernel: launches in one replay}}."""
+    for impl in ("mxu", "cios"):
+        total = {k: phase_launches("plonk", impl)[k]
+                 + phase_launches("fri", impl)[k]
+                 - phase_launches("transcript", impl)[k]
+                 for k in kernel_launches.DEVICE_NAMES}
+        want = profiled_launches("step", impl)
+        if {k: total[k] for k in want} != want:
+            raise AssertionError(f"{impl}: the phases' launches {total} do "
+                                 f"not add up to a verification's {want}")
+    kernels = {}
+    for impl in ("mxu", "cios", "cios", "mxu"):
+        with pb.use_impl(impl):
+            compiled = host(verifier.verify_on_device(spec_step, batch_step,
+                                                      dev))
+            ph = profile_verify.profile_phases(spec_step, batch_step, dev)
+            rp = profile_verify.profile_replayed(spec_step, batch_step, dev)
+        out = ph.pop("outputs")
+        for key in ("plonk_ok", "fri_ok"):
+            for what, got in ((f"the {key[:-3]} phase's graph", out[key]),
+                              ("the probe's whole graph",
+                               out["verifier"][key])):
+                if not np.array_equal(got, compiled[key]):
+                    bad = np.nonzero(got != compiled[key])[0].tolist()
+                    raise AssertionError(f"{impl}: {what} differs from the "
+                                         f"compiled verifier's {key} in "
+                                         f"lanes {bad}")
+        verdicts = {"phases": out["plonk_ok"] & out["fri_ok"],
+                    "replayed": rp.pop("verdicts"),
+                    "replayed without the timer": rp.pop("unprobed_verdicts")}
+        for what, got in verdicts.items():
+            if not np.array_equal(got, expected):
+                raise AssertionError(f"{impl}: the probe's {what} verdicts "
+                                     f"reject {np.nonzero(~got)[0].tolist()}")
+        for phase, r in ph["phases"].items():
+            check_launches(f"{impl}: one replay of the {phase} phase",
+                           r["kernels"], phase_launches(phase, impl))
+        whole = ph["whole"]
+        want = profiled_launches("step", impl)
+        check_launches(f"{impl}: one replay of the whole graph",
+                       {k: whole["kernels"][k] for k in want}, want)
+        kernels.setdefault(impl, {p: r["kernels"]
+                                  for p, r in ph["phases"].items()})
+        line = "; ".join(
+            f"{p} compile {r['compile_s']:.3f} s (warm-up {r['warmup_s']:.3f}, "
+            f"capture {r['capture_s']:.3f}), first replay "
+            f"{r['first_replay_s']:.4f} s, replays best {r['best_s']:.4f} "
+            f"median {r['median_s']:.4f} s, events best "
+            f"{r['event_best_s']:.4f} median {r['event_median_s']:.4f} s, "
+            f"{r['device_events']} device events"
+            for p, r in ph["phases"].items())
+        print(f"phases {impl} step B={STEP_BATCH} (one CUDA graph a phase, "
+              f"best and median of {profile_verify.REPS}): {line}; "
+              f"plonk_only {ph['plonk_only_s']:.4f} s (events "
+              f"{ph['plonk_only_event_s']:.4f}), fri_only "
+              f"{ph['fri_only_s']:.4f} s (events {ph['fri_only_event_s']:.4f}"
+              f"), plonk + fri - transcript "
+              f"{ph['plonk_plus_fri_less_transcript_s']:.4f} s; the whole "
+              f"graph best {whole['best_s']:.4f} median "
+              f"{whole['median_s']:.4f} s, events best "
+              f"{whole['event_best_s']:.4f} median "
+              f"{whole['event_median_s']:.4f} s (captured here: "
+              f"{whole['captured_here']}); peak device memory "
+              f"{ph['peak_allocated_mib']:.1f} MiB allocated, "
+              f"{ph['peak_reserved_mib']:.1f} MiB reserved; plonk_ok and "
+              f"fri_ok equal the compiled verifier's on all {STEP_BATCH} "
+              f"lanes [{card}]")
+        stages = ", ".join(f"{k} {v:.5f}" for k, v in rp["stages"].items())
+        print(f"replayed {impl} step B={STEP_BATCH} (verify_batch after the "
+              f"key's first call, medians of {profile_verify.REPS}, s): "
+              f"{stages}; sum {rp['stage_sum_s']:.4f} s against "
+              f"verify_batch without the timer "
+              f"{[round(w, 4) for w in rp['unprobed_s']]} (median "
+              f"{rp['unprobed_median_s']:.4f} s) [{card}]")
+        print(f"probe {impl} JSON: " + json.dumps(
+            {"phases": ph, "replayed": rp}))
+    return kernels
 
 
 def profiled_launches(fixture, impl):
@@ -1719,6 +1819,13 @@ def main():
         print(f"stages {impl} step B={STEP_BATCH} (s, eager): "
               f"{json.dumps(st)} [{card}]")
 
+    # -- 5a. the compiled phases and the host stages of a replayed batch
+    #        (tools/profile_verify), in turns
+    probe_s = time.perf_counter()
+    phase_kernels = phase_probe(dev, card, spec_step, batch_step, expected)
+    print(f"the probe on the compiled path, 4 turns: "
+          f"{time.perf_counter() - probe_s:.1f} s [{card}]")
+
     # -- 5b. one eager step batch under the profiler under each setting
     for impl in ("mxu", "cios"):
         wall, n_dev, busy, per_kernel = profile_batch(
@@ -1865,6 +1972,12 @@ def main():
             "launches_in_one_replay": replay_kernels["mxu"][name][0],
             "device_s_in_one_replay": replay_kernels["mxu"][name][1],
             "launches_on_parallel_paths": on_parallel_paths(name)})
+    for k in kernels:
+        impl = "cios" if k["name"] == "poseidon_bn254_cios" else "mxu"
+        name = k["name"] if k["name"] in kernel_launches.DEVICE_NAMES \
+            else "poseidon_gl_transcript"
+        k["launches_in_one_phase_replay"] = {
+            p: n[name] for p, n in phase_kernels[impl].items()}
     print(f"step B={STEP_BATCH} replay, graph alone (median of "
           f"{REPLAYS}): mxu {replay['mxu']['graph_median_s']:.4f} s, cios "
           f"{replay['cios']['graph_median_s']:.4f} s; device events in one "

@@ -31,6 +31,21 @@ def counters():
             "coset_interp_scan": km.coset_interp_scan}
 
 
+# The device kernel each counter's wrapper launches, as torch.profiler names
+# it (a substring of the name).  The public-input sponge is a launch of the
+# transcript kernel, so the profiler counts it under poseidon_gl_transcript.
+DEVICE_NAMES = {"poseidon_bn254": "poseidon_bn254_kernel",
+                "poseidon_bn254_cios": "poseidon_bn254_cios_kernel",
+                "poseidon_gl_transcript": "transcript_kernel",
+                "qe_horner": "qe_horner_kernel",
+                "qe_powers": "qe_powers_kernel",
+                "qe_inv": "qe_inv_kernel",
+                "gl_mul": "gl_mul_kernel",
+                "gl_mul_const": "gl_mul_const_kernel",
+                "qe_mul": "qe_mul_kernel",
+                "coset_interp_scan": "coset_interp_scan_kernel"}
+
+
 def reset():
     for wrapper in counters().values():
         wrapper.launches = 0

@@ -7,6 +7,10 @@ Counterpart of ``plonky2_tpu/utils/profiling.py``:
   in the stage that issued it; one JSON object per report.
 - ``trace``: a ``torch.profiler`` trace of the CPU and (where there is one)
   the GPU, written as a Chrome trace (open in Perfetto or chrome://tracing).
+- ``device_kernels``: one run of a function under ``torch.profiler`` on a
+  GPU, with its device events, busy time and each hand-written kernel's
+  launches and device time; the way to count the kernels a CUDA graph's
+  replay launches, which the wrappers' counters do not see.
 - ``flops_report``: static per-proof operation counts from the circuit spec
   (Poseidon permutations, quadratic-extension products), the same dict as
   the JAX function, key for key.
@@ -57,6 +61,34 @@ class StageTimer:
         out = dict(self.timings)
         out.update(extra)
         return json.dumps(out)
+
+
+def device_kernels(fn, device, names=None):
+    """fn() once under ``torch.profiler``, ended by ``cuda.synchronize``:
+    (wall s, device kernel and copy events seen, device busy s, {kernel:
+    (launches, device s)}) for each name of ``names`` ({kernel: a substring
+    of its device name}, by default ``kernels.launches.DEVICE_NAMES``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..kernels.launches import DEVICE_NAMES
+
+    names = DEVICE_NAMES if names is None else names
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in on_device) / 1e6
+    per_kernel = {}
+    for key, needle in names.items():
+        hits = [e for e in on_device if needle in e.name]
+        per_kernel[key] = (len(hits),
+                           sum(e.time_range.elapsed_us() for e in hits) / 1e6)
+    return wall, len(on_device), busy, per_kernel
 
 
 def flops_report(spec) -> dict:

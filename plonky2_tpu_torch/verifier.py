@@ -24,7 +24,8 @@ path, ``cli bench``) goes through the compiled verifier: ``verify_device``
 captured once per (spec, batch size, device, Poseidon-BN254 kernel, query
 window) in a CUDA graph and replayed, the counterpart of the JAX package's
 per-shape ``jax.jit`` programs.  ``verify_device`` itself stays eager: the
-CPU runs it, and so does the stage probe.
+CPU runs it, and so does the stage probe's ``stages`` mode; its ``phases``
+mode captures parts of it in graphs of their own (``capture``).
 """
 
 from __future__ import annotations
@@ -45,6 +46,12 @@ from .fri.verify import check_query_rounds, query_rounds, verify_fri
 from .proof import serde
 from .proof.convert import from_reference
 from .proof.serde import VALID_MASK, stack_proofs
+
+
+def _stage(timer, name):
+    """``timer.stage(name)`` (a ``utils.profiling.StageTimer``), or nothing
+    when ``timer`` is None: no stage, no synchronisation."""
+    return timer.stage(name) if timer else contextlib.nullcontext()
 
 
 def resolve_device(device):
@@ -98,9 +105,7 @@ def verify_device(spec, schedule, dev, obs, diagnostics=False, timer=None,
     of n contiguous blocks of the FRI query rounds (``fri.verify
     .query_rounds``), and FRI checks only those; the public-input hash, the
     transcript and the PLONK check run whole, as on a JAX 2-D mesh."""
-    def stage(name):
-        return timer.stage(name) if timer else contextlib.nullcontext()
-
+    stage = functools.partial(_stage, timer)
     B = obs[0].shape[0]
     with stage("pi_hash"):
         pi_hash = pgl.hash_no_pad(dev["public_inputs"])
@@ -124,11 +129,16 @@ def schedule_for(spec):
     return chal.build_schedule(spec)
 
 
-def prepare(spec, proof_batch, device):
-    """Host side of a batch: (schedule, tensor dict, observed sequence)."""
+def prepare(spec, proof_batch, device, timer=None):
+    """Host side of a batch: (schedule, tensor dict, observed sequence).
+    With a ``utils.profiling.StageTimer``, the observed sequence
+    (``observed``) and the tensors (``convert``) are timed apart."""
     schedule = schedule_for(spec)
-    obs = gl.split_u64(chal.build_observed_host(spec, proof_batch), device)
-    return schedule, proof_to_device(proof_batch, device), obs
+    with _stage(timer, "observed"):
+        obs = gl.split_u64(chal.build_observed_host(spec, proof_batch), device)
+    with _stage(timer, "convert"):
+        dev = proof_to_device(proof_batch, device)
+    return schedule, dev, obs
 
 
 def apply_valid_masks(verdict, proof_batch, valid_mask=None):
@@ -171,20 +181,41 @@ def check_inputs(static, given):
                              f"{w.dtype} {tuple(w.shape)}")
 
 
+def capture(fn, device):
+    """Capture ``fn()``, a function of tensors that stay where they are (a
+    graph's static inputs), in a CUDA graph on ``device``: one eager run on
+    a side stream first, which fills the constant tables (``goldilocks
+    .device_table``), the kernels' tables and their one-time attributes,
+    then the capture on that stream.  Returns (graph, outputs, warmup_s,
+    capture_s): the outputs are the graph's own tensors, which each replay
+    overwrites; ``capture_s`` holds the capture and instantiation.  A
+    failed capture raises."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    t0 = time.perf_counter()
+    with torch.cuda.stream(side):
+        fn()
+    side.synchronize()
+    warmup_s = time.perf_counter() - t0
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, stream=side):
+        outputs = fn()
+    return graph, outputs, warmup_s, time.perf_counter() - t0
+
+
 class CompiledVerifier:
     """``verify_device(..., diagnostics=True)`` of one key, captured in a
     CUDA graph.
 
     The static inputs are made from the circuit's layout (``serde
-    .zero_batch``).  At the first call, after the inputs are copied in, one
-    eager run on a side stream fills the constant tables (``goldilocks
-    .device_table``), the kernels' tables and their one-time attributes;
-    then ``verify_device`` is captured on that stream (``capture_s`` holds
-    the capture and instantiation, ``warmup_s`` the eager run).  Every call
-    checks its inputs against the static ones (``check_inputs``), copies
-    them in, replays the graph and returns clones of the outputs, so the
-    next replay cannot overwrite a result not yet read.  A failed capture
-    or replay raises: nothing falls back to the eager path."""
+    .zero_batch``).  At the first call, after the inputs are copied in,
+    ``capture`` warms ``verify_device`` up and captures it (``warmup_s``,
+    ``capture_s``).  Every call checks its inputs against the static ones
+    (``check_inputs``), copies them in, replays the graph and returns
+    clones of the outputs, so the next replay cannot overwrite a result not
+    yet read.  A failed capture or replay raises: nothing falls back to the
+    eager path."""
 
     def __init__(self, spec, batch_size, device, mode, query_shard=None):
         start, stop = query_rounds(spec, query_shard)
@@ -204,37 +235,29 @@ class CompiledVerifier:
                                  diagnostics=True,
                                  query_shard=self.query_shard)
 
-    def _capture(self):
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        t0 = time.perf_counter()
-        with torch.cuda.stream(side):
-            self._verify()
-        side.synchronize()
-        self.warmup_s = time.perf_counter() - t0
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=side):
-            outputs = self._verify()
-        self.capture_s = time.perf_counter() - t0
-        self.graph, self.outputs = graph, outputs
-
-    def __call__(self, dev, obs):
+    def __call__(self, dev, obs, timer=None):
         """Verify the tensor dict ``dev`` and observed sequence ``obs`` (as
         ``prepare`` makes them, on any device): {"verdict", "plonk_ok",
         "fri_ok"}, (B,) bool tensors on this entry's device, not yet
-        synchronised."""
-        check_query_rounds(self.spec, dev, self.query_shard)
+        synchronised.  With a ``utils.profiling.StageTimer``, the checks
+        and copies in (``copy_in``), the replay (``replay``) and the clones
+        (``outputs``) are timed apart; a key's first call captures between
+        the first two, untimed."""
         given = {"proof": dev, "obs": obs}
-        check_inputs(self.inputs, given)
         with torch.cuda.device(self.device):
-            for (_, static), (_, x) in zip(_leaves(self.inputs),
-                                           _leaves(given)):
-                static.copy_(x)
+            with _stage(timer, "copy_in"):
+                check_query_rounds(self.spec, dev, self.query_shard)
+                check_inputs(self.inputs, given)
+                for (_, static), (_, x) in zip(_leaves(self.inputs),
+                                               _leaves(given)):
+                    static.copy_(x)
             if self.graph is None:
-                self._capture()
-            self.graph.replay()
-            return {k: v.clone() for k, v in self.outputs.items()}
+                self.graph, self.outputs, self.warmup_s, self.capture_s = \
+                    capture(self._verify, self.device)
+            with _stage(timer, "replay"):
+                self.graph.replay()
+            with _stage(timer, "outputs"):
+                return {k: v.clone() for k, v in self.outputs.items()}
 
 
 @functools.lru_cache(maxsize=8)
@@ -261,22 +284,25 @@ compiled_verifier.cache_info = _compiled.cache_info
 compiled_verifier.cache_clear = _compiled.cache_clear
 
 
-def verify_on_device(spec, proof_batch, device, query_shard=None):
+def verify_on_device(spec, proof_batch, device, query_shard=None,
+                     timer=None):
     """Verify a batched serde dict on ``device`` before any mask:
     {"verdict", "plonk_ok", "fri_ok"}, (B,) bool tensors on the device, not
     yet synchronised.  The CPU runs ``verify_device`` eagerly; a GPU runs
     the compiled verifier of (spec, B, device, the Poseidon-BN254 kernel,
     query window), capturing its graph at the key's first call.
-    ``query_shard`` as in ``verify_device``."""
+    ``query_shard`` as in ``verify_device``.  With a ``utils.profiling
+    .StageTimer``, the stages of ``prepare`` and of the compiled verifier's
+    call (on the CPU: of ``verify_device``) are timed apart."""
     device = resolve_device(device)
     if device.type == "cpu":
-        schedule, dev, obs = prepare(spec, proof_batch, device)
+        schedule, dev, obs = prepare(spec, proof_batch, device, timer)
         return verify_device(spec, schedule, dev, obs, diagnostics=True,
-                             query_shard=query_shard)
+                             timer=timer, query_shard=query_shard)
     entry = compiled_verifier(spec, np.shape(proof_batch["pow_witness"])[0],
                               device, pb.kernel_impl(), query_shard)
-    _, dev, obs = prepare(spec, proof_batch, "cpu")
-    return entry(dev, obs)
+    _, dev, obs = prepare(spec, proof_batch, "cpu", timer)
+    return entry(dev, obs, timer)
 
 
 def verify_batch(spec, proof_batch, valid_mask=None, device="cuda",

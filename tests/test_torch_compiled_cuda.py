@@ -11,7 +11,14 @@ is false.  On a machine with a GPU:
 - a batch with another query-round count raises ValueError, and the graph
   still gives the right verdicts after;
 - the cache holds at most 8 entries and frees an evicted entry's graph and
-  memory pool.
+  memory pool;
+- with a ``StageTimer`` the compiled path gives the same outputs and times
+  its host stages apart;
+- the stage probe's plonk and fri phases, each captured in its own graph
+  (``verifier.capture``) and re-fed the lanes in another order, give the
+  compiled verifier's plonk_ok and fri_ok;
+- a capture that cannot be captured (a host sync inside) raises, and the
+  next capture works.
 """
 import gc
 import weakref
@@ -24,6 +31,8 @@ from plonky2_tpu_torch.hash import poseidon_bn254 as pb
 from plonky2_tpu_torch.proof import serde
 from plonky2_tpu_torch.proof.fixtures import decode_block_lanes
 from plonky2_tpu_torch.proof.synthetic import make_dummy_proof, make_tiny_spec
+from plonky2_tpu_torch.tools import profile_verify
+from plonky2_tpu_torch.utils.profiling import StageTimer
 
 pytestmark = pytest.mark.cuda
 EXPECTED = [True, False, False, False]
@@ -107,3 +116,45 @@ def test_compiled_cache_evicts_and_frees_at_maxsize(dev):
     torch.cuda.empty_cache()
     assert all(e() is None for e in entries)
     assert torch.cuda.memory_reserved(dev) < held
+
+
+def test_timer_stages_on_the_compiled_path(dev, decode_block):
+    spec, batch = decode_block
+    plain = _host(verifier.verify_on_device(spec, batch, dev))
+    timer = StageTimer(dev)
+    timed = _host(verifier.verify_on_device(spec, batch, dev, timer=timer))
+    assert timed == plain and plain["verdict"] == EXPECTED
+    assert list(timer.timings) == ["observed", "convert", "copy_in",
+                                   "replay", "outputs"]
+
+
+@pytest.mark.parametrize("name,key", [("plonk", "plonk_ok"),
+                                      ("fri", "fri_ok")])
+def test_phase_graphs_refed_give_the_compiled_verifiers(dev, decode_block,
+                                                        name, key):
+    spec, batch = decode_block
+    schedule, d, obs = verifier.prepare(spec, batch, dev)
+    phase = profile_verify.PHASES[name]
+    with torch.cuda.device(dev):
+        graph, out, _, _ = verifier.capture(
+            lambda: phase(spec, schedule, d, obs), dev)
+        for order in ([0, 1, 2, 3], [3, 0, 2, 1]):
+            lanes = {k: v[order] for k, v in batch.items()}
+            _, d2, obs2 = verifier.prepare(spec, lanes, dev)
+            for (_, static), (_, x) in zip(verifier._leaves((d, obs)),
+                                           verifier._leaves((d2, obs2))):
+                static.copy_(x)
+            graph.replay()
+            want = verifier.verify_on_device(spec, lanes, dev)[key]
+            assert out.cpu().tolist() == want.cpu().tolist()
+
+
+def test_failed_capture_raises_and_the_next_capture_works(dev):
+    x = torch.arange(8, device=dev)
+    with torch.cuda.device(dev):
+        with pytest.raises(RuntimeError):
+            verifier.capture(lambda: x * int(x.sum().item()), dev)
+        graph, out, _, _ = verifier.capture(lambda: x * 2, dev)
+        x.add_(1)
+        graph.replay()
+    assert out.cpu().tolist() == [2 * (i + 1) for i in range(8)]

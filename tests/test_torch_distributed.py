@@ -118,7 +118,7 @@ def test_masks_reach_the_distributed_path(world_of_one, monkeypatch):
     """The batch's ingest mask and the caller's ``valid_mask`` both apply
     before the gather and the count; the device verdict is stubbed to all
     True so that only the masks can make a lane False."""
-    def accept_all(spec, schedule, dev, obs, diagnostics=False,
+    def accept_all(spec, schedule, dev, obs, diagnostics=False, timer=None,
                    query_shard=None):
         ok = torch.ones(obs[0].shape[0], dtype=torch.bool)
         return {"verdict": ok, "plonk_ok": ok, "fri_ok": ok} if diagnostics else ok

@@ -16,6 +16,7 @@ import torch
 from plonky2_tpu_torch.fields import bn254
 from plonky2_tpu_torch.fields import goldilocks as gl
 from plonky2_tpu_torch.fields import goldilocks_ext as qe
+from plonky2_tpu_torch.fri.verify import _pow_ok
 from plonky2_tpu_torch.hash import poseidon_bn254 as pb
 from plonky2_tpu_torch.hash import poseidon_gl as pgl
 from plonky2_tpu_torch.kernels import goldilocks_ext as kq
@@ -704,3 +705,22 @@ def test_mul_const_bits_kernel_reads_views_as_contiguous_copies(dev):
     got, n = _counted(km.gl_mul_const,
                       lambda: gl.mul_const_bits(None, 7, empty, 0, table))
     assert n == 0 and got[0].shape == (256, 0)
+
+
+# (pow response, pow_bits, verdict) in each branch of 64 - pow_bits (24,
+# 32, 48, 64): tests/test_torch_serde_negative.py's cases, held there
+# against the JAX function
+POW_CASES = [((1 << 24) - 1, 40, True), (1 << 24, 40, False),
+             (1 << 35, 40, False), ((1 << 32) - 1, 32, True),
+             (1 << 32, 32, False), ((1 << 48) - 1, 16, True),
+             (1 << 48, 16, False), (123, 16, True),
+             ((1 << 63) + 5, 0, True)]
+
+
+@pytest.mark.parametrize("pow_bits", sorted({b for _, b, _ in POW_CASES}))
+def test_pow_ok_on_a_cuda_tensor(dev, pow_bits):
+    cases = [(v, want) for v, b, want in POW_CASES if b == pow_bits]
+    pr = gl.split_u64(np.array([v for v, _ in cases], np.uint64), dev)
+    got = _pow_ok(pr, pow_bits)
+    assert got.device == pr[0].device
+    assert got.cpu().tolist() == [want for _, want in cases]

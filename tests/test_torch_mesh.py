@@ -126,7 +126,7 @@ def test_query_sharded_batch_needs_its_query_shard():
                        challenges=None, verdict=None, query_shard=shard)
 
 
-def _accept_all(spec, schedule, dev, obs, diagnostics=False,
+def _accept_all(spec, schedule, dev, obs, diagnostics=False, timer=None,
                 query_shard=None):
     ok = torch.ones(obs[0].shape[0], dtype=torch.bool)
     return {"verdict": ok, "plonk_ok": ok, "fri_ok": ok} if diagnostics else ok
