@@ -68,12 +68,18 @@
    the same graphs re-fed (the corrupted step lane moved to 200, the
    decode_block lanes in another order) give their own verdicts; a step
    batch with one query round raises ValueError and the next replay is
-   still right; one replay under torch.profiler launches kernel A (or the
+   still right; two step batches of one key loaded and replayed back to
+   back, the first one's copy to the card held back on the stream, give
+   their own verdicts; the graph's inputs are the narrow layout (every
+   static input int32, the batch packed into a pinned buffer and copied in
+   one transfer), whose bytes a call are printed beside the int64
+   layout's; one replay under torch.profiler launches kernel A (or the
    CIOS kernel) 63 times, the transcript kernel twice (the sponge and the
    transcript), QE Horner 8, QE powers 2 and QE inverse 7 times, the
    products 16, 17 and 154 times and the interpolation scan once, and gives
-   the device's events (against 9,146 with the scan's operands gathered and
-   concatenated by plain kernels, 61,926 with the products plain) and busy
+   the device's events (against 9,114 with int64 inputs, 9,146 with the
+   scan's operands gathered and concatenated by plain kernels, 61,926 with
+   the products plain) and busy
    share; the eager wall against the median of 5 replays, the first call
    with its warm-up and capture, and the peak device memory with the graphs
    held;
@@ -106,7 +112,8 @@
    counted), and the wall of a second call
    (replays): the 1-D mesh over every GPU; the (2, 1) mesh on [cuda:0,
    cuda:0], whose two proof shards share one graph, with the corrupted lane
-   in the second shard; the (1, 2) proof x query mesh over [cuda:0,
+   in the second shard, once more with the first shard's copy to the card
+   held back on the stream; the (1, 2) proof x query mesh over [cuda:0,
    cuda:0], which launches the BN254 kernel at B*Q/2 = 3584 and 4*B*Q/2 =
    14336 lanes, and on it the decode_block batch [valid, bad opening, a
    leaf corrupted in the last query round, a proof that fails ingest] (must
@@ -154,7 +161,7 @@ from plonky2_tpu_torch.kernels import poseidon_bn254_cios as kc
 from plonky2_tpu_torch.kernels import poseidon_gl_transcript as kt
 from plonky2_tpu_torch.parallel import distributed
 from plonky2_tpu_torch.parallel import mesh as pmesh
-from plonky2_tpu_torch.proof import serde
+from plonky2_tpu_torch.proof import convert, serde
 from plonky2_tpu_torch.proof.fixtures import (corrupt_wires_opening,
                                               decode_block_lanes, load_fixture,
                                               query_shard_lanes)
@@ -264,10 +271,18 @@ PHASE_LAUNCHES = {
 # the bit-selected product, and 9,146 before the interpolation scan read
 # its operands from the wires (PERF.md §5 and §6, NVIDIA H100 80GB HBM3,
 # 700.00 W).
+# A profiled call of the compiled verifier on prepared tensors gave 9,114
+# events while the graph took the wide int64 layout (its inputs copied in
+# as 66 int64 tensors; PR 12's run).
 PLAIN_CHAINS_REPLAY_EVENTS = 367045
 PLAIN_PRODUCTS_REPLAY_EVENTS = 61926
 LOOP_PRODUCTS_REPLAY_EVENTS = 9268
 GATHERED_SCAN_REPLAY_EVENTS = 9146
+WIDE_INPUTS_REPLAY_EVENTS = 9114
+# Cycles the stream sleeps before the first of two back-to-back loads of one
+# key (some 34 ms at 1980 MHz): its copy to the card waits behind them, so a
+# second pack that did not wait for that copy would overwrite its bytes.
+BACK_TO_BACK_SLEEP_CYCLES = 1 << 26
 # The chain kernels' checked shapes: (terms, x) of every horner call at B=256
 # on step and decode_block (the final polynomial is 32 and 16 long, the FRI
 # batch 258 and 257), lane counts off the chains' blocks (whole warps, about
@@ -1248,6 +1263,55 @@ def wall_s(fn):
     return out, time.perf_counter() - t0
 
 
+def lane_rejected(lane):
+    """The step verdicts with ``lane`` alone False."""
+    want = np.ones(STEP_BATCH, bool)
+    want[lane] = False
+    return want
+
+
+def back_to_back(dev, what, run, wants):
+    """``run()`` issues loads and replays of one key, reading none, and
+    returns their (B,) verdict tensors; the stream sleeps first, so the
+    first load's copy to the card is still waiting when the next one
+    packs.  Fail unless each gives its own ``wants``."""
+    torch.cuda.synchronize()
+    with torch.cuda.device(dev):
+        torch.cuda._sleep(BACK_TO_BACK_SLEEP_CYCLES)
+        outs = run()
+    for i, (got, want) in enumerate(zip(outs, wants)):
+        got = got.cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{what}, back to back: batch {i} rejects "
+                                 f"{np.nonzero(~got)[0].tolist()}, expected "
+                                 f"{np.nonzero(~want)[0].tolist()}")
+    print(f"{what}: loaded back to back, the first copy to the card held "
+          f"back on the stream: each batch gives its own verdicts")
+
+
+def narrow_inputs(impl, entry, spec, batch, card):
+    """Fail unless the entry's graph takes the narrow layout (every static
+    input int32, a view of its flat buffer) through a pinned buffer, and
+    the bytes copied in a call are the narrow arrays' (slots aligned to
+    128 bytes); print them beside the int64 layout's."""
+    leaves = verifier._leaves(entry.inputs)
+    if any(t.dtype != torch.int32 for _, t in leaves):
+        raise AssertionError(f"{impl}: the graph's inputs are not all int32")
+    if not entry.staging.is_pinned():
+        raise AssertionError(f"{impl}: the staging buffer is not pinned")
+    arrays = convert.device_arrays(batch)
+    arrays[verifier.OBSERVED] = chal.build_observed_host(spec, batch)
+    narrow = sum(a.nbytes for a in arrays.values())
+    wide = sum(t.numel() * 8 for _, t in leaves)
+    if not narrow <= entry.bytes_in < narrow + 128 * len(arrays):
+        raise AssertionError(f"{impl}: {entry.bytes_in} bytes copied in, "
+                             f"the narrow arrays hold {narrow}")
+    print(f"{impl}: bytes copied in a step B={STEP_BATCH} call: "
+          f"{entry.bytes_in} in one copy from a pinned buffer of the same "
+          f"size ({narrow} of arrays, {len(leaves)} int32 leaves in "
+          f"{len(arrays)} slots; the int64 layout held {wide}) [{card}]")
+
+
 def compiled_checks(impl, dev, card, spec_step, batch_step, expected,
                     spec_db, batch_db):
     """The compiled verifier under ``impl``, its two keys captured by the
@@ -1298,6 +1362,10 @@ def compiled_checks(impl, dev, card, spec_step, batch_step, expected,
         if not np.array_equal(got, expected):
             raise AssertionError(f"{impl}: after the malformed batch the "
                                  f"step replay gave another verdict")
+        back_to_back(dev, f"{impl}: one entry", lambda: [
+            verifier.verify_on_device(spec_step, b, dev)["verdict"]
+            for b in (batch_step, moved)],
+            [expected, lane_rejected(MOVED_LANE)])
         print(f"{impl}: the same graphs re-fed: step with lane {MOVED_LANE} "
               f"corrupted rejects lane {MOVED_LANE} alone, decode_block in "
               f"order {DECODE_ORDER} gives "
@@ -1308,7 +1376,8 @@ def compiled_checks(impl, dev, card, spec_step, batch_step, expected,
         replays = [wall_s(lambda: verifier.verify_batch(
             spec_step, batch_step, device=dev))[1] for _ in range(REPLAYS)]
         entry = verifier.compiled_verifier(spec_step, STEP_BATCH, dev, impl)
-        _, d, obs = verifier.prepare(spec_step, batch_step, dev)
+        narrow_inputs(impl, entry, spec_step, batch_step, card)
+        _, d, obs = verifier.prepare(spec_step, batch_step, dev, narrow=True)
         graph_only = [wall_s(lambda: entry(d, obs))[1]
                       for _ in range(REPLAYS)]
     wall, n_dev, busy, per_kernel = profile_batch(impl, lambda: entry(d, obs))
@@ -1326,7 +1395,8 @@ def compiled_checks(impl, dev, card, spec_step, batch_step, expected,
           f"{[round(w, 4) for w in graph_only]} (median "
           f"{np.median(graph_only):.4f} s) [{card}]")
     print(f"{impl}: one replay under torch.profiler: wall {wall:.4f} s, "
-          f"{n_dev} device events (with the scan's operands gathered: "
+          f"{n_dev} device events (with int64 inputs: "
+          f"{WIDE_INPUTS_REPLAY_EVENTS}; with the scan's operands gathered: "
           f"{GATHERED_SCAN_REPLAY_EVENTS}; with FRI's bit loops: "
           f"{LOOP_PRODUCTS_REPLAY_EVENTS}; with the plain products: "
           f"{PLAIN_PRODUCTS_REPLAY_EVENTS}; with the plain chains too: "
@@ -1508,6 +1578,9 @@ def parallel_paths(dev, card, spec_step, batch_step, expected):
           f"{STEP_BATCH // 2}, one graph): lane {RANKS_CORRUPT_LANE} alone "
           f"rejected; wall per batch {first:.3f} s first call, {wall:.3f} s "
           f"second call; launches {launches['mesh_2x1']} [{card}]")
+    back_to_back(dev, f"(2, 1) mesh on [{dev}, {dev}] (corrupted lane in the "
+                 f"second shard)", lambda: [torch.as_tensor(run())],
+                 [want_r])
 
     mesh2 = pmesh.make_mesh_2d([dev, dev], (1, 2))
     run = lambda: pmesh.verify_batch_sharded_2d(spec_step, batch_step, mesh2)
@@ -1808,7 +1881,9 @@ def main():
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"peak device memory with the graphs held (step B={STEP_BATCH} and "
           f"decode_block B=4, eager runs beside them): "
-          f"{peak / 2**20:.1f} MiB [{card}]")
+          f"{peak / 2**20:.1f} MiB allocated, "
+          f"{torch.cuda.max_memory_reserved(dev) / 2**20:.1f} MiB reserved "
+          f"(the graphs' pools) [{card}]")
 
     # -- 5. stage times (tools/profile_verify, eager), in turns
     for impl in ("mxu", "cios", "cios", "mxu"):
@@ -1982,7 +2057,8 @@ def main():
           f"{REPLAYS}): mxu {replay['mxu']['graph_median_s']:.4f} s, cios "
           f"{replay['cios']['graph_median_s']:.4f} s; device events in one "
           f"profiled replay: mxu {replay['mxu']['device_events']}, cios "
-          f"{replay['cios']['device_events']} (with the scan's operands "
+          f"{replay['cios']['device_events']} (with int64 inputs: "
+          f"{WIDE_INPUTS_REPLAY_EVENTS}; with the scan's operands "
           f"gathered: {GATHERED_SCAN_REPLAY_EVENTS}; with FRI's bit loops: "
           f"{LOOP_PRODUCTS_REPLAY_EVENTS}; with the plain products: "
           f"{PLAIN_PRODUCTS_REPLAY_EVENTS}; with the plain chains too: "

@@ -76,11 +76,13 @@ def cmd_verify(args, device):
 def cmd_bench(args, device):
     spec, proof = _load(args.circuit)
     batch = serde.stack_proofs([proof] * args.batch)
-    schedule, dev, obs = verifier.prepare(spec, batch, device)
     entry = None
     if device.type == "cuda":
         entry = verifier.compiled_verifier(spec, args.batch, device,
                                            pb.kernel_impl())
+    # the compiled verifier takes the narrow layout; the eager path widens
+    schedule, dev, obs = verifier.prepare(spec, batch, device,
+                                          narrow=entry is not None)
 
     def run():
         if entry is None:

@@ -24,10 +24,12 @@ released before the next is captured; the peak device memory is reported.
 key's first call, its host stages timed apart (``utils.profiling
 .StageTimer``, a ``cuda.synchronize`` after each):
 
-    observed    the observed sequence (transcript/challenger.build_observed_host)
-    convert     the batch's tensors on the CPU (proof/convert.from_reference)
-    copy_in     the input checks and the copies into the graph's inputs
-    replay      the graph's replay
+    observed    the batch checked against the key's layout, then the observed
+                sequence (transcript/challenger.build_observed_host)
+    convert     the batch's bytes packed into the key's pinned buffer
+                (CompiledVerifier.load)
+    copy_in     one host-to-device copy of the narrow layout
+    replay      the graph's replay, the widening of its inputs included
     outputs     the clones of its outputs
     read_back   device -> host copy of the (B,) outputs
     mask        the ingest mask (verifier.apply_valid_masks)
@@ -157,11 +159,11 @@ def _host(tree):
     return type(tree)(_host(v) for v in tree)
 
 
-def _whole(spec, schedule, dev, obs, device, reps):
-    """The whole verifier on the prepared tensors: the compiled verifier's
-    replay on a GPU (its key's graph, captured here if it is new), the
-    eager ``verify_device`` on the CPU.  (times, its {"verdict",
-    "plonk_ok", "fri_ok"} as numpy arrays)."""
+def _whole(spec, schedule, batch, dev, obs, device, reps):
+    """The whole verifier on ``batch``: the compiled verifier's replay on a
+    GPU (its key's graph, captured here if it is new, the batch loaded
+    first), the eager ``verify_device`` on the prepared tensors on the
+    CPU.  (times, its {"verdict", "plonk_ok", "fri_ok"} as numpy arrays)."""
     if device.type == "cpu":
         out, result = _runs(lambda: verifier.verify_device(
             spec, schedule, dev, obs, diagnostics=True), device, reps)
@@ -169,7 +171,7 @@ def _whole(spec, schedule, dev, obs, device, reps):
     entry = verifier.compiled_verifier(spec, obs[0].shape[0], device,
                                        pb.kernel_impl())
     captured_here = entry.graph is None
-    entry(dev, obs)  # the inputs copied in; a new key captures
+    verifier.verify_on_device(spec, batch, device)  # loaded; a new key captures
     torch.cuda.synchronize(device)
     out = {"captured_here": captured_here, "warmup_s": entry.warmup_s,
            "capture_s": entry.capture_s,
@@ -204,7 +206,7 @@ def profile_phases(spec, batch, device, reps=REPS):
             else:
                 phases[name], out = _runs(run, device, reps)
                 outputs[name] = _host(out)
-        whole, outputs["verifier"] = _whole(spec, schedule, dev, obs,
+        whole, outputs["verifier"] = _whole(spec, schedule, batch, dev, obs,
                                             device, reps)
     best = {k: v["best_s"] for k, v in phases.items()}
     report = {"compiled": compiled, "phases": phases, "whole": whole,

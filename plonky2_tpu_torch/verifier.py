@@ -23,9 +23,13 @@ On the GPU every entry point (``verify_batch``, the meshes, the distributed
 path, ``cli bench``) goes through the compiled verifier: ``verify_device``
 captured once per (spec, batch size, device, Poseidon-BN254 kernel, query
 window) in a CUDA graph and replayed, the counterpart of the JAX package's
-per-shape ``jax.jit`` programs.  ``verify_device`` itself stays eager: the
-CPU runs it, and so does the stage probe's ``stages`` mode; its ``phases``
-mode captures parts of it in graphs of their own (``capture``).
+per-shape ``jax.jit`` programs.  Its inputs are the JAX package's narrow
+layout (``proof/convert.to_narrow``: 32-bit words), packed into a pinned
+host buffer and copied to the card in one transfer; the graph widens them
+(``proof/convert.widen``) before it verifies.  ``verify_device`` itself
+stays eager: the CPU runs it on the widened batch, and so does the stage
+probe's ``stages`` mode; its ``phases`` mode captures parts of it in graphs
+of their own (``capture``).
 """
 
 from __future__ import annotations
@@ -43,8 +47,7 @@ from .hash import poseidon_gl as pgl
 from .transcript import challenger as chal
 from .plonk_checks.vanishing import verify_plonk
 from .fri.verify import check_query_rounds, query_rounds, verify_fri
-from .proof import serde
-from .proof.convert import from_reference
+from .proof import convert, serde
 from .proof.serde import VALID_MASK, stack_proofs
 
 
@@ -75,7 +78,7 @@ def device_name(device):
 
 def proof_to_device(proof, device):
     """Batched numpy serde dict -> tensor dict on ``device``."""
-    return from_reference(proof, device)
+    return convert.from_reference(proof, device)
 
 
 def _extract_challenges(schedule, states):
@@ -129,15 +132,20 @@ def schedule_for(spec):
     return chal.build_schedule(spec)
 
 
-def prepare(spec, proof_batch, device, timer=None):
-    """Host side of a batch: (schedule, tensor dict, observed sequence).
-    With a ``utils.profiling.StageTimer``, the observed sequence
-    (``observed``) and the tensors (``convert``) are timed apart."""
+def prepare(spec, proof_batch, device, timer=None, narrow=False):
+    """Host side of a batch: (schedule, tensor dict, observed sequence),
+    widened for ``verify_device`` (``proof/convert.widen``) or, with
+    ``narrow``, the int32 words of the narrow layout that the compiled
+    verifier takes (``proof/convert.to_narrow``).  With a ``utils
+    .profiling.StageTimer``, the observed sequence (``observed``) and the
+    tensors (``convert``) are timed apart."""
     schedule = schedule_for(spec)
+    place = convert.to_tensors if narrow else convert.widen
     with _stage(timer, "observed"):
-        obs = gl.split_u64(chal.build_observed_host(spec, proof_batch), device)
+        obs = place(convert.split_words(
+            chal.build_observed_host(spec, proof_batch)), device)
     with _stage(timer, "convert"):
-        dev = proof_to_device(proof_batch, device)
+        dev = place(convert.to_narrow(proof_batch), device)
     return schedule, dev, obs
 
 
@@ -204,45 +212,112 @@ def capture(fn, device):
     return graph, outputs, warmup_s, time.perf_counter() - t0
 
 
+OBSERVED = "observed"  # the observed sequence's slot in a flat buffer
+
+
 class CompiledVerifier:
     """``verify_device(..., diagnostics=True)`` of one key, captured in a
-    CUDA graph.
+    CUDA graph on the narrow layout.
 
-    The static inputs are made from the circuit's layout (``serde
-    .zero_batch``).  At the first call, after the inputs are copied in,
-    ``capture`` warms ``verify_device`` up and captures it (``warmup_s``,
-    ``capture_s``).  Every call checks its inputs against the static ones
-    (``check_inputs``), copies them in, replays the graph and returns
-    clones of the outputs, so the next replay cannot overwrite a result not
-    yet read.  A failed capture or replay raises: nothing falls back to the
-    eager path."""
+    The graph's static inputs are the narrow leaves of the key's layout
+    (``serde.zero_batch`` and its observed sequence; ``proof/convert
+    .to_narrow``), views of one flat int32 buffer on the card (``flat``,
+    ``convert.flat_layout``); the captured function widens them
+    (``convert.widen``, one ``bitwise_and`` a leaf) and verifies.  A batch
+    comes in through ``load``: its arrays checked against the key's layout,
+    their bytes packed into a pinned host buffer (``staging``, allocated at
+    the first ``load`` and kept: at step B=256 some 149 MB of pinned host
+    memory a key, 1.2 GB at the cache's 8 keys), and one host-to-device
+    copy on the replay's stream.  A CUDA event recorded after that copy is
+    waited on before the next pack, so a batch loaded while the last one's
+    copy is in flight cannot overwrite it.  ``__call__`` copies narrow
+    tensors in instead (``prepare(..., narrow=True)``).  ``replay`` captures
+    at the key's first call (``capture``: ``warmup_s``, ``capture_s``),
+    replays the graph and returns clones of the outputs, so the next replay
+    cannot overwrite a result not yet read.  A failed allocation, copy,
+    capture or replay raises: nothing falls back to the eager path."""
 
     def __init__(self, spec, batch_size, device, mode, query_shard=None):
         start, stop = query_rounds(spec, query_shard)
         self.spec, self.device = spec, torch.device(device)
         self.mode, self.query_shard = mode, query_shard
-        self.schedule, dev, obs = prepare(
-            spec, serde.zero_batch(spec, batch_size, stop - start),
-            self.device)
-        self.inputs = {"proof": dev, "obs": obs}
+        self.batch_size = batch_size
+        self.schedule = schedule_for(spec)
+        zeros = serde.zero_batch(spec, batch_size, stop - start)
+        arrays = convert.device_arrays(zeros)
+        arrays[OBSERVED] = chal.build_observed_host(spec, zeros)
+        self.slots, words = convert.flat_layout(arrays)
+        self.flat = torch.zeros(words, dtype=torch.int32, device=self.device)
+        leaves = convert.narrow_views(self.slots, self.flat)
+        obs = leaves.pop(OBSERVED)
+        self.inputs = {"proof": leaves, "obs": obs}
+        self.staging = self.copied = None
         self.graph = self.outputs = None
         self.warmup_s = self.capture_s = None
+
+    @property
+    def bytes_in(self):
+        """Bytes copied to the card by a ``load``: the narrow layout's."""
+        return self.flat.numel() * self.flat.element_size()
 
     def _verify(self):
         with pb.use_impl(self.mode):
             return verify_device(self.spec, self.schedule,
-                                 self.inputs["proof"], self.inputs["obs"],
+                                 convert.widen(self.inputs["proof"],
+                                               self.device),
+                                 convert.widen(self.inputs["obs"],
+                                               self.device),
                                  diagnostics=True,
                                  query_shard=self.query_shard)
 
+    def check_batch(self, proof_batch):
+        """Raise ValueError unless the numpy serde dict ``proof_batch`` has
+        exactly this key's keys, shapes and dtypes: its query rounds first,
+        then every array, the ``*_tovec`` chunks and the mask too
+        (``serde.batch_error``), then the batch size."""
+        check_query_rounds(self.spec, proof_batch, self.query_shard)
+        start, stop = query_rounds(self.spec, self.query_shard)
+        error = serde.batch_error(self.spec, proof_batch, stop - start)
+        if error is None and len(proof_batch["pow_witness"]) != self.batch_size:
+            error = (f"batch size {len(proof_batch['pow_witness'])}, not "
+                     f"{self.batch_size}")
+        if error is not None:
+            raise ValueError(f"batch not in the layout of this compiled "
+                             f"verifier: {error}")
+
+    def load(self, proof_batch, timer=None):
+        """Load the numpy serde dict ``proof_batch`` for the next replay:
+        ``check_batch`` before anything is copied and the observed sequence
+        (stage ``observed``); the wait for the last load's copy and the
+        pack into the pinned buffer (``convert``); one non-blocking copy to
+        the card on the current stream and the event after it
+        (``copy_in``)."""
+        cuda = self.device.type == "cuda"
+        with _stage(timer, "observed"):
+            self.check_batch(proof_batch)
+            arrays = convert.device_arrays(proof_batch)
+            arrays[OBSERVED] = chal.build_observed_host(self.spec,
+                                                        proof_batch)
+        with _stage(timer, "convert"):
+            if self.staging is None:
+                self.staging = torch.empty(self.flat.shape, dtype=torch.int32,
+                                           pin_memory=cuda)
+            if self.copied is not None:
+                self.copied.synchronize()
+            convert.pack(self.slots, self.staging, arrays)
+        with _stage(timer, "copy_in"):
+            self.flat.copy_(self.staging, non_blocking=True)
+            if cuda:
+                self.copied = torch.cuda.Event()
+                self.copied.record(torch.cuda.current_stream(self.device))
+
     def __call__(self, dev, obs, timer=None):
-        """Verify the tensor dict ``dev`` and observed sequence ``obs`` (as
-        ``prepare`` makes them, on any device): {"verdict", "plonk_ok",
+        """Verify the narrow tensors ``dev`` and ``obs`` (as ``prepare(...,
+        narrow=True)`` makes them, on any device): {"verdict", "plonk_ok",
         "fri_ok"}, (B,) bool tensors on this entry's device, not yet
         synchronised.  With a ``utils.profiling.StageTimer``, the checks
-        and copies in (``copy_in``), the replay (``replay``) and the clones
-        (``outputs``) are timed apart; a key's first call captures between
-        the first two, untimed."""
+        and copies in (``copy_in``) and ``replay``'s stages are timed
+        apart."""
         given = {"proof": dev, "obs": obs}
         with torch.cuda.device(self.device):
             with _stage(timer, "copy_in"):
@@ -251,6 +326,15 @@ class CompiledVerifier:
                 for (_, static), (_, x) in zip(_leaves(self.inputs),
                                                _leaves(given)):
                     static.copy_(x)
+        return self.replay(timer)
+
+    def replay(self, timer=None):
+        """Replay the graph on what was loaded or copied in last (a key's
+        first call captures first, untimed): {"verdict", "plonk_ok",
+        "fri_ok"}, clones of the outputs, not yet synchronised.  With a
+        ``utils.profiling.StageTimer``, the replay (``replay``) and the
+        clones (``outputs``) are timed apart."""
+        with torch.cuda.device(self.device):
             if self.graph is None:
                 self.graph, self.outputs, self.warmup_s, self.capture_s = \
                     capture(self._verify, self.device)
@@ -291,9 +375,11 @@ def verify_on_device(spec, proof_batch, device, query_shard=None,
     yet synchronised.  The CPU runs ``verify_device`` eagerly; a GPU runs
     the compiled verifier of (spec, B, device, the Poseidon-BN254 kernel,
     query window), capturing its graph at the key's first call.
-    ``query_shard`` as in ``verify_device``.  With a ``utils.profiling
-    .StageTimer``, the stages of ``prepare`` and of the compiled verifier's
-    call (on the CPU: of ``verify_device``) are timed apart."""
+    ``query_shard`` as in ``verify_device``.  On a GPU the batch reaches
+    the graph in the narrow layout (``CompiledVerifier.load``): the host
+    widens nothing.  With a ``utils.profiling.StageTimer``, the stages are
+    timed apart: on a GPU ``CompiledVerifier.load``'s and ``replay``'s, on
+    the CPU those of ``prepare`` and ``verify_device``."""
     device = resolve_device(device)
     if device.type == "cpu":
         schedule, dev, obs = prepare(spec, proof_batch, device, timer)
@@ -301,8 +387,8 @@ def verify_on_device(spec, proof_batch, device, query_shard=None,
                              timer=timer, query_shard=query_shard)
     entry = compiled_verifier(spec, np.shape(proof_batch["pow_witness"])[0],
                               device, pb.kernel_impl(), query_shard)
-    _, dev, obs = prepare(spec, proof_batch, "cpu", timer)
-    return entry(dev, obs, timer)
+    entry.load(proof_batch, timer)
+    return entry.replay(timer)
 
 
 def verify_batch(spec, proof_batch, valid_mask=None, device="cuda",

@@ -10,6 +10,10 @@ is false.  On a machine with a GPU:
   verdicts: nothing of the first batch is baked in at capture;
 - a batch with another query-round count raises ValueError, and the graph
   still gives the right verdicts after;
+- two batches of one key loaded and replayed back to back, neither read
+  before both are issued, the first's copy to the card held back on the
+  stream, each give their own verdicts: the pinned staging buffer is not
+  packed again while a copy from it is in flight;
 - the cache holds at most 8 entries and frees an evicted entry's graph and
   memory pool;
 - with a ``StageTimer`` the compiled path gives the same outputs and times
@@ -91,6 +95,22 @@ def test_malformed_batch_raises_and_the_graph_still_works(dev, decode_block):
         verifier.verify_on_device(spec, one_round, dev)
     again = _host(verifier.verify_on_device(spec, batch, dev))
     assert again["verdict"] == EXPECTED
+
+
+def test_back_to_back_loads_of_one_key_keep_their_batches(dev,
+                                                         decode_block):
+    spec, batch = decode_block
+    verifier.verify_on_device(spec, batch, dev)  # the key's graph
+    entry = verifier.compiled_verifier(spec, 4, dev, pb.kernel_impl())
+    bad_first = {k: v[[1, 1, 2, 3]] for k, v in batch.items()}
+    with torch.cuda.device(dev):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 26)  # the first copy waits behind this
+        first = verifier.verify_on_device(spec, batch, dev)
+        second = verifier.verify_on_device(spec, bad_first, dev)
+    assert entry.staging.is_pinned()
+    assert _host(first)["verdict"] == EXPECTED
+    assert _host(second)["verdict"] == [False] * 4
 
 
 def test_compiled_cache_evicts_and_frees_at_maxsize(dev):

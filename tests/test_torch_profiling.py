@@ -236,7 +236,7 @@ def test_compiled_verifier_with_and_without_a_timer(monkeypatch, tiny):
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
     entry = verifier.CompiledVerifier(spec, 2, "cpu", "mxu")
-    _, dev, obs = verifier.prepare(spec, batch, "cpu")
+    _, dev, obs = verifier.prepare(spec, batch, "cpu", narrow=True)
     want = {k: v.tolist() for k, v in lane_parity(
         spec, None, dev, obs).items()}
     first = entry(dev, obs)
@@ -252,7 +252,8 @@ def test_compiled_verifier_with_and_without_a_timer(monkeypatch, tiny):
     assert got["plonk_ok"].tolist() == [not x for x in want["plonk_ok"]]
     qkeys = serde.query_axis_keys(spec)
     _, no_rounds, _ = verifier.prepare(spec, {
-        k: (v[:, :0] if k in qkeys else v) for k, v in batch.items()}, "cpu")
+        k: (v[:, :0] if k in qkeys else v) for k, v in batch.items()}, "cpu",
+        narrow=True)
     for t in (None, StageTimer("cpu")):
         with pytest.raises(ValueError, match="query rounds"):
             entry(no_rounds, obs, t)
