@@ -47,22 +47,31 @@
    version (every product plain), and the bit-selected product at its 3
    calls beside the loop it replaced; the Poseidon-BN254 rows carry a
    latency bound beside their throughput bound, and the scan its two forms'
-   bounds and chains;
+   bounds and chains; FRI's chain kernels (csrc/fri_merkle.cu, every
+   leaf sponge and Merkle climb of a verification in one launch) on the
+   main path's real inputs, step B=256 (43,008 chains) and decode_block
+   B=4, in turns A, CIOS, CIOS, A: each bit-exact against
+   fri/merkle.merkle_roots_plain, as is the per-level form (one
+   single-permutation launch an absorb step and tree level, 63 on step),
+   each timed in a CUDA graph beside the per-level form, with its bound;
 4. the main path under PLONKY2_TPU_PB_IMPL=mxu, through the compiled
    verifier (one CUDA graph per key, captured at the key's first call; the
    cache emptied first): verifies 256 copies of testdata/step with one
    corrupted lane (only that lane may be rejected) and the decode_block
    batch [valid, bad opening, bad leaf, bad pow] (must give [True, False,
    False, False]); the Python launch counters, which see a key's eager
-   warm-up and its capture but no replay, must read kernel A 246 times
-   (2 x 123), the transcript kernel 4 times, the public-input sponge 2
+   warm-up and its capture but no replay, must read FRI's chain kernel
+   merkle_chains_a 4 times (2 x 2: one launch a verification, where the
+   per-level form launched kernel A 63 and 60 times), the
+   single-permutation kernels never, the transcript kernel 4 times, the public-input sponge 2
    times (step has 36 public inputs, decode_block none), QE Horner 32, QE
    powers 8 and QE inverse 28 times (8, 2 and 7 a verification), the
    Goldilocks product 64, the product by a constant 68, the QE product
    614 and the interpolation scan 4 times (16, 17, 154 and 153, 1 a
-   verification of step and decode_block), the CIOS kernel never;
-5. the same path under PLONKY2_TPU_PB_IMPL=cios: the same verdicts, the CIOS
-   kernel and the transcript kernel launched, kernel A not;
+   verification of step and decode_block), merkle_chains_cios never;
+5. the same path under PLONKY2_TPU_PB_IMPL=cios: the same verdicts,
+   merkle_chains_cios (4) and the transcript kernel launched,
+   merkle_chains_a not;
 6. the compiled verifier under each setting: the replay's verdict, plonk_ok
    and fri_ok equal the eager verify_device's, bit for bit, on both batches;
    the same graphs re-fed (the corrupted step lane moved to 200, the
@@ -73,11 +82,13 @@
    their own verdicts; the graph's inputs are the narrow layout (every
    static input int32, the batch packed into a pinned buffer and copied in
    one transfer), whose bytes a call are printed beside the int64
-   layout's; one replay under torch.profiler launches kernel A (or the
-   CIOS kernel) 63 times, the transcript kernel twice (the sponge and the
+   layout's; one replay under torch.profiler launches the chain kernel
+   of the setting once (the per-level form: kernel A or the CIOS kernel 63
+   times), the transcript kernel twice (the sponge and the
    transcript), QE Horner 8, QE powers 2 and QE inverse 7 times, the
    products 16, 17 and 154 times and the interpolation scan once, and gives
-   the device's events (against 9,114 with int64 inputs, 9,146 with the
+   the device's events (against 9,180 with a Poseidon-BN254 launch an
+   absorb step and tree level, 9,114 with int64 inputs, 9,146 with the
    scan's operands gathered and concatenated by plain kernels, 61,926 with
    the products plain) and busy
    share; the eager wall against the median of 5 replays, the first call
@@ -92,7 +103,7 @@
    must equal the compiled verifier's plonk_ok and fri_ok on every lane and
    whose replays must launch each phase's kernels (transcript: the sponge
    and the transcript; plonk: those and 5 QE Horner, 1 inverse, 4, 12 and
-   128 products and the scan; fri: those and 63 Poseidon-BN254, 3 Horner,
+   128 products and the scan; fri: those and the chain kernel, 3 Horner,
    2 powers, 6 inverse, 12, 5 and 26 products), and the host stages of a
    replayed verify_batch (--mode replayed: observed, convert, copy_in,
    replay, outputs, read_back, mask) beside the call without the timer,
@@ -114,14 +125,16 @@
    cuda:0], whose two proof shards share one graph, with the corrupted lane
    in the second shard, once more with the first shard's copy to the card
    held back on the stream; the (1, 2) proof x query mesh over [cuda:0,
-   cuda:0], which launches the BN254 kernel at B*Q/2 = 3584 and 4*B*Q/2 =
-   14336 lanes, and on it the decode_block batch [valid, bad opening, a
+   cuda:0], whose chain kernel runs B*Q/2 = 3584 lanes of each chain kind,
+   and on it the decode_block batch [valid, bad opening, a
    leaf corrupted in the last query round, a proof that fails ingest] (must
    give [True, False, False, False]); verify_batch_distributed in a group
    of one (NCCL); two ranks as subprocesses, B=128 each, lane 129 corrupted
    (NCCL with a GPU each, else gloo, both on cuda:0); one short run of
-   tools/micro_pb and of tools/scaling_bench (whose sizes above the GPU
-   count are "not measured").
+   tools/micro_pb (the single-permutation kernels' own path since FRI's
+   chain kernels; the kernels line gives their launches there) and of
+   tools/scaling_bench (whose sizes above the GPU count are "not
+   measured").
 
 Every phase must pass or the script exits non-zero.  Each kernel launch
 counter is set to 0 just before the path it belongs to and read just after;
@@ -149,6 +162,8 @@ from plonky2_tpu_torch import cli, verifier
 from plonky2_tpu_torch.fields import bn254
 from plonky2_tpu_torch.fields import goldilocks as gl
 from plonky2_tpu_torch.fields import goldilocks_ext as qe
+from plonky2_tpu_torch.fri import merkle
+from plonky2_tpu_torch.fri import verify as fv
 from plonky2_tpu_torch.gates import gates as G
 from plonky2_tpu_torch.hash import poseidon_bn254 as pb
 from plonky2_tpu_torch.hash import poseidon_gl as pgl
@@ -217,19 +232,30 @@ BN254_PERM_DEPTH = (pb.FULL_ROUNDS + pb.PARTIAL_ROUNDS) * (3 + 1)
 GL_PERM_DEPTH = 8 * 4 + 22 * 3
 NO_LIBRARY = None  # no PyTorch call computes a Poseidon permutation or a
 #                   Goldilocks product
+# The single-permutation Poseidon-BN254 kernels' own path since FRI's chain
+# kernels took the main path's permutations: the BN254 chains of micro_pb.
+SINGLE_PERMUTATION_PATH = "tools/micro_pb"
 # Off kernel A's 64-lane tile, the CIOS group kernel's 32-lane and its lane
 # kernel's 128-lane tile, and either side of the CIOS kernel's switch from
 # the group to the lane kernel (2 warps an SM of one thread a lane: 8448
 # lanes on the H100's 132 SMs).
 BN_LANES_RISKY = [1, 31, 33, 63, 65, 1000, 8447, 8448, 28673]
 TRANSCRIPT_BATCHES = [1, 3, 17, STEP_BATCH, STEP_BATCH + 1]
-# The main path's launches: step B=256 and decode_block B=4, one Poseidon-BN254
-# launch per leaf-scan step and Merkle level, one transcript launch a batch,
-# in each of the two runs of verify_device at a key's first call (the eager
-# warm-up and the capture); a replay launches them inside the graph.
+# The main path's launches: step B=256 and decode_block B=4, one FRI chain
+# kernel launch a verification (every leaf sponge and Merkle climb), one
+# transcript launch a batch, in each of the two runs of verify_device at a
+# key's first call (the eager warm-up and the capture); a replay launches
+# them inside the graph.  Before the chain kernels a verification launched
+# the single-permutation Poseidon-BN254 kernel once an absorb step and tree
+# level: 63 times on step (51 at B x Q lanes, 12 at 4 B x Q), 60 on
+# decode_block; the main path launches it no more (tools/micro_pb does).
 CAPTURE_RUNS = 2
-STEP_BN254_LAUNCHES = 63
-DECODE_BN254_LAUNCHES = 60
+CHAIN_KERNEL_LAUNCHES = 1
+PER_LEVEL_BN254_LAUNCHES = {"step": 63, "decode_block": 60}
+# FRI's chain kernel of each Poseidon-BN254 setting: (form, wrapper's
+# counter name).
+CHAIN_FORMS = {"mxu": ("a", "merkle_chains_a"),
+               "cios": ("cios", "merkle_chains_cios")}
 # Of one verification on either fixture: the call sites of
 # fields/goldilocks_ext.horner (8), powers (2) and inv (7); and one
 # public-input sponge launch where the circuit has public inputs (step: 36,
@@ -262,7 +288,7 @@ PHASE_LAUNCHES = {
     "plonk": {"poseidon_gl_transcript": 2, "qe_horner": 5, "qe_inv": 1,
               "gl_mul": 4, "gl_mul_const": 12, "qe_mul": 128,
               "coset_interp_scan": 1},
-    "fri": {"bn254": STEP_BN254_LAUNCHES, "poseidon_gl_transcript": 2,
+    "fri": {"chains": CHAIN_KERNEL_LAUNCHES, "poseidon_gl_transcript": 2,
             "qe_horner": 3, "qe_powers": 2, "qe_inv": 6, "gl_mul": 12,
             "gl_mul_const": 5, "qe_mul": 26}}
 # A step replay issued 367,045 device events while the chains and the
@@ -273,7 +299,10 @@ PHASE_LAUNCHES = {
 # 700.00 W).
 # A profiled call of the compiled verifier on prepared tensors gave 9,114
 # events while the graph took the wide int64 layout (its inputs copied in
-# as 66 int64 tensors; PR 12's run).
+# as 66 int64 tensors), and 9,180 with the narrow layout while FRI's hash
+# chains ran a Poseidon-BN254 launch an absorb step and tree level with
+# plain ops between (PERF.md §5).
+PER_LEVEL_BN254_REPLAY_EVENTS = 9180
 PLAIN_CHAINS_REPLAY_EVENTS = 367045
 PLAIN_PRODUCTS_REPLAY_EVENTS = 61926
 LOOP_PRODUCTS_REPLAY_EVENTS = 9268
@@ -375,6 +404,8 @@ MUL_CONSTS = [0, 1, 7, gl.DTH_ROOT]
 BITS_LANES = [1, 31, 33, 255, 257]
 SCAN_LANES = [STEP_BATCH, 1, 31, 33, 255, 257]
 GRAPH_LAUNCHES = 20
+# FRI's chains in a graph: a step batch's are 709,632 permutations a call
+CHAIN_GRAPH_LAUNCHES = 5
 # The refed step batch: the corrupted lane moved.
 MOVED_LANE = 200
 DECODE_ORDER = [3, 0, 2, 1]
@@ -1153,6 +1184,116 @@ def time_bits_form(dev, rng, rate, spec):
     return rows
 
 
+def fri_inputs(spec, batch, dev):
+    """The widened tensor dict of ``batch`` on the card and its query
+    indices from the transcript, as verify_device reaches FRI."""
+    schedule, d, obs = verifier.prepare(spec, batch, dev)
+    states = chal.run_transcript(schedule, obs,
+                                 pgl.hash_no_pad(d["public_inputs"]))
+    return d, verifier._extract_challenges(schedule, states)["query_indices"]
+
+
+def per_level_scans(spec, plan, d, x):
+    """FRI's hash chains as the port ran them before the chain kernels
+    (fri/verify._hash_leaves_scan, _merkle_chain): one single-permutation
+    launch an absorb step and tree level, the four initial oracles' levels
+    in one launch, plain ops between; 63 launches on step."""
+    bits = gl.to_bits(x, 64)[:spec.lde_bits]
+    leaf = [fv._hash_leaves_scan(k.leaves(d), k.slot_mask()) if k.steps
+            else k.leaves(d)[:, :, 0, 0] for k in plan[:4]]
+    init = fv._merkle_chain(torch.stack(leaf, dim=2), d["init_siblings"],
+                            [b[..., None].expand(b.shape + (4,))
+                             for b in bits], spec.initial_tree_depth)
+    roots = list(init.unbind(2))
+    for k in plan[4:]:
+        roots.append(fv._merkle_chain(
+            fv._hash_leaves_scan(k.leaves(d), k.slot_mask()),
+            k.siblings(d), bits[k.offset:], k.depth))
+    return torch.stack(roots, dim=2)
+
+
+def chain_bound(plan, lanes, rate, latency_s):
+    """(ms, what bounds it, form, latency bound ms, permutations) of every
+    chain of ``plan`` over ``lanes`` (proof, query round) pairs: the
+    permutations' operations in the least costly form (as bn254_bound)
+    against the bytes the function must move: the absorbed slots, a noop
+    leaf and the siblings read once (128 B an element), the index's two
+    words, the roots written; beside it the longest chain's latency bound."""
+    perms = lanes * sum(k.length for k in plan)
+    cios_ms = perms * BN254_CIOS_IMADS / rate * 1e3
+    tc_ms = max(perms * BN254_TC_IMADS / rate,
+                perms * BN254_TC_INT8_OPS / INT8_OPS_PER_S) * 1e3
+    read = sum(bin(k.mask).count("1") + (k.steps == 0) + k.depth
+               for k in plan)
+    nbytes = lanes * ((read + len(plan)) * 128 + 16)
+    ms, by = bound(min(cios_ms, tc_ms), nbytes)
+    form = ("tensor-core form: IMADs" if tc_ms <= cios_ms
+            else "CIOS form: IMADs") if by == "operations" else "bytes"
+    latency = max(k.length for k in plan) * bn254_latency_ms(latency_s)
+    return ms, by, form, latency, perms
+
+
+def merkle_chain_phase(dev, card, rate, latency_s, cases):
+    """FRI's chain kernels on each case's real inputs ({name: (spec,
+    batch)}: the widened tensors and the transcript's query indices), in
+    turns A, CIOS, CIOS, A: each kernel bit-exact against
+    merkle_roots_plain, and so the per-level form (63 launches on step)
+    under the same setting; each timed by CUDA events in a graph beside the
+    per-level form on the same inputs.  Returns {name: results}."""
+    out = {}
+    for name, (spec, batch) in cases.items():
+        d, x = fri_inputs(spec, batch, dev)
+        plan = merkle.merkle_plan(spec)
+        lanes = x[0].numel()
+        want, plain_ms = timed_once(
+            lambda: merkle.merkle_roots_plain(plan, d, x))
+        ms, by, form, latency, perms = chain_bound(plan, lanes, rate,
+                                                   latency_s)
+        r = {"shape": list(want.shape), "chains": lanes * len(plan),
+             "permutations": perms, "longest_chain": max(k.length
+                                                         for k in plan),
+             "plain_ms": plain_ms, "bound_ms": ms, "bound_by": by,
+             "bound_form": form, "latency_bound_ms": latency,
+             "ms": {"a": [], "cios": []},
+             "per_level_ms": {"a": [], "cios": []}, "max_abs_err": 0}
+        for impl in ("mxu", "cios", "cios", "mxu"):
+            key, counter = CHAIN_FORMS[impl]
+            kernel = kernel_launches.counters()[counter]
+            with pb.use_impl(impl):
+                got = kernel(plan, d, x)
+                old = per_level_scans(spec, plan, d, x)
+                torch.cuda.synchronize()
+                r["max_abs_err"] = max(r["max_abs_err"],
+                                       int((got - want).abs().max()))
+                for what, roots in (("the chain kernel", got),
+                                    ("the per-level form", old)):
+                    if not torch.equal(roots, want):
+                        raise AssertionError(
+                            f"{name} {impl}: {what} differs from "
+                            f"merkle_roots_plain in chains "
+                            f"{(roots != want).any(-1).nonzero().tolist()[:8]}")
+                r["ms"][key].append(graph_ms(lambda: kernel(plan, d, x),
+                                             CHAIN_GRAPH_LAUNCHES))
+                r["per_level_ms"][key].append(graph_ms(
+                    lambda: per_level_scans(spec, plan, d, x),
+                    CHAIN_GRAPH_LAUNCHES))
+        print(f"merkle_chains {name} ({r['chains']} chains, {perms} "
+              f"permutations, the longest {r['longest_chain']}): in turns A, "
+              f"CIOS, CIOS, A kernel {r['ms']['a'][0]:.4f}, "
+              f"{r['ms']['cios'][0]:.4f}, {r['ms']['cios'][1]:.4f}, "
+              f"{r['ms']['a'][1]:.4f} ms, the per-level form "
+              f"({PER_LEVEL_BN254_LAUNCHES.get(name.split()[0], '?')} "
+              f"launches) {r['per_level_ms']['a'][0]:.4f}, "
+              f"{r['per_level_ms']['cios'][0]:.4f}, "
+              f"{r['per_level_ms']['cios'][1]:.4f}, "
+              f"{r['per_level_ms']['a'][1]:.4f} ms (each in a CUDA graph of "
+              f"{CHAIN_GRAPH_LAUNCHES}); plain {plain_ms:.2f} ms, one call; "
+              f"bound {ms:.4f} ms ({by}, {form}), latency bound "
+              f"{latency:.4f} ms; bit-exact [{card}]")
+        out[name] = r
+    return out
+
+
 def ptxas_report():
     """Per kernel: registers, shared memory and spills, from ``ptxas -v``."""
     keep = ("Compiling entry function", "registers", "spill")
@@ -1170,12 +1311,12 @@ def decode_block_batch():
 
 def per_verify(fixture, impl):
     """Each kernel's launches in one verification of ``fixture`` under
-    PLONKY2_TPU_PB_IMPL=``impl``."""
-    bn = {"step": STEP_BN254_LAUNCHES,
-          "decode_block": DECODE_BN254_LAUNCHES}[fixture]
-    used, unused = (("poseidon_bn254_cios", "poseidon_bn254") if impl == "cios"
-                    else ("poseidon_bn254", "poseidon_bn254_cios"))
-    return {used: bn, unused: 0, "poseidon_gl_transcript": 1,
+    PLONKY2_TPU_PB_IMPL=``impl``: the chain kernel of the setting once, the
+    single-permutation Poseidon-BN254 kernels never."""
+    used = CHAIN_FORMS[impl][1]
+    unused = CHAIN_FORMS["mxu" if impl == "cios" else "cios"][1]
+    return {used: CHAIN_KERNEL_LAUNCHES, unused: 0, "poseidon_bn254": 0,
+            "poseidon_bn254_cios": 0, "poseidon_gl_transcript": 1,
             "poseidon_gl_pi_hash": PI_HASH_LAUNCHES[fixture], **CHAIN_LAUNCHES,
             **PRODUCT_LAUNCHES[fixture]}
 
@@ -1223,9 +1364,10 @@ def profile_batch(impl, fn):
     """fn() under torch.profiler: (wall s, device kernel and copy events
     seen, device busy s, {kernel: (launches, device s)}).  The CIOS
     kernel's two kernels are also counted apart: its group kernel runs the
-    launches below 8448 lanes, its lane kernel the larger ones.  The
-    public-input sponge is a launch of the transcript kernel and counts
-    under poseidon_gl_transcript."""
+    launches below 8448 lanes, its lane kernel the larger ones (the main
+    path launches neither since FRI's chain kernels).  The public-input
+    sponge is a launch of the transcript kernel and counts under
+    poseidon_gl_transcript."""
     names = dict(kernel_launches.DEVICE_NAMES,
                  poseidon_bn254_cios_group="poseidon_bn254_cios_kernel_group",
                  poseidon_bn254_cios_lane="poseidon_bn254_cios_kernel_lane")
@@ -1236,10 +1378,9 @@ def profile_batch(impl, fn):
 def phase_launches(phase, impl):
     """The kernel launches torch.profiler sees in one replay of ``phase``'s
     graph on step under ``impl``, every kernel of the path named."""
-    used = "poseidon_bn254_cios" if impl == "cios" else "poseidon_bn254"
     want = {k: 0 for k in kernel_launches.DEVICE_NAMES}
     for key, n in PHASE_LAUNCHES[phase].items():
-        want[used if key == "bn254" else key] = n
+        want[CHAIN_FORMS[impl][1] if key == "chains" else key] = n
     return want
 
 
@@ -1395,8 +1536,10 @@ def compiled_checks(impl, dev, card, spec_step, batch_step, expected,
           f"{[round(w, 4) for w in graph_only]} (median "
           f"{np.median(graph_only):.4f} s) [{card}]")
     print(f"{impl}: one replay under torch.profiler: wall {wall:.4f} s, "
-          f"{n_dev} device events (with int64 inputs: "
-          f"{WIDE_INPUTS_REPLAY_EVENTS}; with the scan's operands gathered: "
+          f"{n_dev} device events (with a Poseidon-BN254 launch an absorb "
+          f"step and level: {PER_LEVEL_BN254_REPLAY_EVENTS}; with int64 "
+          f"inputs: {WIDE_INPUTS_REPLAY_EVENTS}; with the scan's operands "
+          f"gathered: "
           f"{GATHERED_SCAN_REPLAY_EVENTS}; with FRI's bit loops: "
           f"{LOOP_PRODUCTS_REPLAY_EVENTS}; with the plain products: "
           f"{PLAIN_PRODUCTS_REPLAY_EVENTS}; with the plain chains too: "
@@ -1448,7 +1591,8 @@ def phase_probe(dev, card, spec_step, batch_step, expected):
                 raise AssertionError(f"{impl}: the probe's {what} verdicts "
                                      f"reject {np.nonzero(~got)[0].tolist()}")
         for phase, r in ph["phases"].items():
-            check_launches(f"{impl}: one replay of the {phase} phase",
+            check_launches(f"{impl}: one replay of the {phase} phase ("
+                           f"{r['device_events']} device events)",
                            r["kernels"], phase_launches(phase, impl))
         whole = ph["whole"]
         want = profiled_launches("step", impl)
@@ -1845,6 +1989,11 @@ def main():
     expected[CORRUPT_LANE] = False
     args = (dev, spec_step, batch_step, expected, spec_db, batch_db, mask_db)
 
+    # -- 2b. FRI's chain kernels on the main path's inputs, in turns
+    chains = merkle_chain_phase(dev, card, rate, latency_s, {
+        f"step B={STEP_BATCH}": (spec_step, batch_step),
+        "decode_block B=4": (spec_db, batch_db)})
+
     torch.cuda.reset_peak_memory_stats(dev)
     got_db, launches, launches_step, step_s = main_path("mxu", *args)
     entry = verifier.compiled_verifier(spec_step, STEP_BATCH, dev, "mxu")
@@ -1905,10 +2054,7 @@ def main():
     for impl in ("mxu", "cios"):
         wall, n_dev, busy, per_kernel = profile_batch(
             impl, lambda: eager(spec_step, batch_step, dev))
-        used = "poseidon_bn254_cios" if impl == "cios" else "poseidon_bn254"
-        need = [used] + ([f"{used}_group", f"{used}_lane"]
-                         if impl == "cios" else [])
-        for key in need:
+        for key in [CHAIN_FORMS[impl][1]]:
             if busy <= 0 or per_kernel[key][0] == 0:
                 raise AssertionError(f"{impl}: the profile shows no {key} "
                                      f"launch")
@@ -1956,7 +2102,7 @@ def main():
                 "bound_ms": bn254_bound(n, rate)[0]}
 
     def at_small(key):
-        # the main path's other launch size: the leaf scans' and FRI
+        # the per-level form's other launch size: the leaf scans' and FRI
         # layers' lane count
         return at_lanes(lanes[0], key)
 
@@ -1969,7 +2115,10 @@ def main():
         {"name": "poseidon_bn254", "route": "cuda",
          "source": "plonky2_tpu_torch/csrc/poseidon_bn254.cu",
          "replaces": "plonky2_tpu/kernels/poseidon_bn254_mxu.py:253",
-         "launches": launches["poseidon_bn254"], "max_abs_err": bn_err["a"],
+         "launches": par_launches["micro_pb"]["poseidon_bn254"],
+         "launches_path": SINGLE_PERMUTATION_PATH,
+         "launches_on_main_path": launches["poseidon_bn254"],
+         "max_abs_err": bn_err["a"],
          "lanes": lanes[-1], "ms": float(np.mean(bn_ms[lanes[-1]]["a"])),
          "plain_ms": bn_plain[lanes[-1]]["a"],
          "bound_ms": bn_bound, "bound_by": bn_by, "bound_form": bn_form,
@@ -1982,7 +2131,9 @@ def main():
         {"name": "poseidon_bn254_cios", "route": "cuda",
          "source": "plonky2_tpu_torch/csrc/poseidon_bn254_cios.cu",
          "replaces": "plonky2_tpu/kernels/poseidon_bn254_pallas.py:263",
-         "launches": launches_c["poseidon_bn254_cios"],
+         "launches": par_launches["micro_pb"]["poseidon_bn254_cios"],
+         "launches_path": SINGLE_PERMUTATION_PATH,
+         "launches_on_main_path": launches_c["poseidon_bn254_cios"],
          "max_abs_err": bn_err["cios"],
          "lanes": lanes[-1], "ms": float(np.mean(bn_ms[lanes[-1]]["cios"])),
          "plain_ms": bn_plain[lanes[-1]]["cios"],
@@ -2017,6 +2168,36 @@ def main():
          "launches_on_parallel_paths": on_parallel_paths(
              "poseidon_gl_pi_hash")},
     ]
+    step_chains = chains[f"step B={STEP_BATCH}"]
+    for impl, permutation in (
+            ("mxu", "plonky2_tpu/kernels/poseidon_bn254_mxu.py:253"),
+            ("cios", "plonky2_tpu/kernels/poseidon_bn254_pallas.py:263")):
+        key, name = CHAIN_FORMS[impl]
+        main = launches if impl == "mxu" else launches_c
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "plonky2_tpu_torch/csrc/fri_merkle.cu",
+            "replaces": "plonky2_tpu/fri/verify.py:101",
+            "also_replaces": ["plonky2_tpu/fri/verify.py:68", permutation],
+            "launches": main[name],
+            "max_abs_err": max(r["max_abs_err"] for r in chains.values()),
+            "chains": step_chains["chains"],
+            "permutations": step_chains["permutations"],
+            "ms": float(np.mean(step_chains["ms"][key])),
+            "plain_ms": step_chains["plain_ms"],
+            "bound_ms": step_chains["bound_ms"],
+            "bound_by": step_chains["bound_by"],
+            "bound_form": step_chains["bound_form"],
+            "latency_bound_ms": step_chains["latency_bound_ms"],
+            "library_ms": NO_LIBRARY,
+            "per_level_form_ms": float(np.mean(
+                step_chains["per_level_ms"][key])),
+            "at_decode_block": {
+                k: (float(np.mean(v[key])) if isinstance(v, dict) else v)
+                for k, v in chains["decode_block B=4"].items()},
+            "launches_in_one_replay": replay_kernels[impl][name][0],
+            "device_s_in_one_replay": replay_kernels[impl][name][1],
+            "launches_on_parallel_paths": on_parallel_paths(name)})
     for name, replaces in (
             ("qe_horner", "plonky2_tpu/fields/goldilocks_ext.py:226"),
             ("qe_powers", "plonky2_tpu/fields/goldilocks_ext.py:237"),
@@ -2048,7 +2229,7 @@ def main():
             "device_s_in_one_replay": replay_kernels["mxu"][name][1],
             "launches_on_parallel_paths": on_parallel_paths(name)})
     for k in kernels:
-        impl = "cios" if k["name"] == "poseidon_bn254_cios" else "mxu"
+        impl = "cios" if "cios" in k["name"] else "mxu"
         name = k["name"] if k["name"] in kernel_launches.DEVICE_NAMES \
             else "poseidon_gl_transcript"
         k["launches_in_one_phase_replay"] = {
@@ -2057,7 +2238,9 @@ def main():
           f"{REPLAYS}): mxu {replay['mxu']['graph_median_s']:.4f} s, cios "
           f"{replay['cios']['graph_median_s']:.4f} s; device events in one "
           f"profiled replay: mxu {replay['mxu']['device_events']}, cios "
-          f"{replay['cios']['device_events']} (with int64 inputs: "
+          f"{replay['cios']['device_events']} (with a Poseidon-BN254 "
+          f"launch an absorb step and level: "
+          f"{PER_LEVEL_BN254_REPLAY_EVENTS}; with int64 inputs: "
           f"{WIDE_INPUTS_REPLAY_EVENTS}; with the scan's operands "
           f"gathered: {GATHERED_SCAN_REPLAY_EVENTS}; with FRI's bit loops: "
           f"{LOOP_PRODUCTS_REPLAY_EVENTS}; with the plain products: "
@@ -2070,6 +2253,8 @@ def main():
           f"{latency_s * 1e9:.3f} ns); transcript {n_perms} x "
           f"{STEP_BATCH} permutations {tr_bound:.4f} ms ({tr_form}: "
           f"{n_perms} x {GL_PERM_DEPTH} x {latency_s * 1e9:.3f} ns) [{card}]")
+    print(f"torch.profiler traces taken again after an empty device trace: "
+          f"{device_kernels.empty_traces} [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -67,258 +67,39 @@
 // are partial; the s32 read-back goes through shared memory four times a
 // round.
 //
-// ptxas -v (sm_90a, nvcc 12.9, printed by chip_smoke.py on the H100): 116
-// registers, no spill stores or loads, 1 barrier; 55,296 bytes of dynamic
-// shared memory a block (SMEM below).
+// The tile's permutation (load, rounds, store) lives in poseidon_bn254_a.cuh,
+// shared with FRI's chain kernel (fri_merkle.cu); this file keeps the
+// single-permutation kernel and its C entry.
+//
+// ptxas -v (sm_90a, nvcc 12.9, printed by chip_smoke.py on the H100): 118
+// registers (116 before the permutation moved into the header), no spill
+// stores or loads, 1 barrier; 55,296 bytes of dynamic shared memory a block
+// (SMEM in the header).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bn254_mont.cuh"
+#include "poseidon_bn254_a.cuh"
 
 namespace {
 
-constexpr int WIDTH = 4;
-constexpr int HALF_FULL = 4;
-constexpr int PARTIAL = 56;
-constexpr int ROUNDS = 2 * HALF_FULL + PARTIAL;  // one matrix each
-
-// Offsets (in field elements) into the constant buffer, in the order the
-// wrapper (kernels/poseidon_bn254.const_elements) lays them out.  Kernel A
-// reads the round constants; the linear layers come from the matrices.
-constexpr int OFF_ARK0 = 0;                              // [4]
-constexpr int OFF_ARK_FIRST = OFF_ARK0 + WIDTH;          // [4][4]
-constexpr int OFF_ARK_SECOND = OFF_ARK_FIRST + 16;       // [4][4]
-constexpr int OFF_M = OFF_ARK_SECOND + 16;               // [4 j][4 i]
-constexpr int OFF_P = OFF_M + 16;                        // [4 j][4 i]
-constexpr int OFF_PART_C = OFF_P + 16;                   // [56]
-constexpr int OFF_S_ROW = OFF_PART_C + PARTIAL;          // [56][4]
-constexpr int OFF_S_COL = OFF_S_ROW + PARTIAL * 4;       // [56][3]
-constexpr int N_CONST = OFF_S_COL + PARTIAL * 3;
-
-constexpr int ROW = WIDTH * 32;        // 128 bytes: a lane's state
-constexpr int STRIDE = ROW + 16;       // padded row, bytes
-constexpr int STRIDE_W = STRIDE / 4;   // padded row, 32-bit words
-constexpr int MAT = ROW * ROW;         // a round matrix, bytes
-constexpr int WARPS = 2;
-constexpr int TILE = 32 * WARPS;       // lanes (and threads) a block
-constexpr int LIMBS = WIDTH * 16;      // a lane's 16-bit limbs
-
-// Shared memory, bytes: two matrix buffers, the A tile, the warps' s32
-// read-back tiles (32 rows of 32 columns each, padded like A).
-constexpr int SM_B = 0;
-constexpr int SM_A = SM_B + 2 * ROW * STRIDE;
-constexpr int SM_C = SM_A + TILE * STRIDE;
-constexpr int SMEM = SM_C + WARPS * 32 * STRIDE;
-constexpr int MAX_DEVICES = 64;  // devices whose shared-memory limit is kept
-
-__device__ __forceinline__ u32 smem_addr(const void* p) {
-  return (u32)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void prefetch_matrix(uint8_t* dst,
-                                                const uint8_t* __restrict__ mats,
-                                                int r) {
-  const uint8_t* src = mats + (size_t)r * MAT;
-  for (int q = threadIdx.x; q < ROW * ROW / 16; q += TILE) {
-    const int row = q >> 3, chunk = (q & 7) * 16;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-                 :: "r"(smem_addr(dst + row * STRIDE + chunk)),
-                    "l"(src + row * ROW + chunk) : "memory");
-  }
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(u32 (&r)[4], const uint8_t* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)) : "memory");
-}
-
-// d += a b on one 16 x 8 tile, K = 32 bytes.
-__device__ __forceinline__ void mma_u8(int (&d)[4], const u32 (&a)[4], u32 b0,
-                                       u32 b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ Fe load_const(const u32* __restrict__ c, int idx) {
-  const uint4* p = reinterpret_cast<const uint4*>(c + idx * NW);
-  const uint4 lo = __ldg(p), hi = __ldg(p + 1);
-  return Fe{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
-}
-
-// x^5 + ark for x < 2p: below 3p < 2^256, which is all the byte rows need.
-__device__ __forceinline__ Fe exp5_ark(const Fe& x, const Fe& ark) {
-  u32 t[ACC];
-  mont<true>(t, x, x);
-  const Fe x2 = low(t);
-  mont<true>(t, x2, x2);
-  const Fe x4 = low(t);
-  mont<true>(t, x4, x);  // below 2p
-  add_fold(t, ark);
-  return low(t);
-}
-
-__device__ __forceinline__ void store_row(uint8_t* row, const Fe (&s)[WIDTH]) {
-  uint4* p = reinterpret_cast<uint4*>(row);
-#pragma unroll
-  for (int e = 0; e < WIDTH; ++e) {
-    p[2 * e] = make_uint4(s[e].w[0], s[e].w[1], s[e].w[2], s[e].w[3]);
-    p[2 * e + 1] = make_uint4(s[e].w[4], s[e].w[5], s[e].w[6], s[e].w[7]);
-  }
-}
-
-// Output element i of the round's linear layer for this thread's lane: the
-// warp's 32 A rows times the 32 matrix columns of element i on the tensor
-// cores, the s32 columns handed to their lane through the warp's C tile,
-// then recombined, reduced and made canonical.
-__device__ __forceinline__ Fe linear_out(const uint8_t* a_rows, const uint8_t* bt,
-                                         int* c_tile, int i, bool partial) {
-  const int lane = threadIdx.x & 31;
-  int acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0;
-
-  // ldmatrix: thread l addresses row (l & 7) of 8 x 16-byte matrix l >> 3.
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 16;
-  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 16;
-#pragma unroll
-  for (int kk = 0; kk < WIDTH; ++kk) {
-    // K step kk reads input element kk; a partial round's out_i (i > 0)
-    // reads only s_0 and s_i.
-    if (partial && i != 0 && kk != 0 && kk != i) continue;
-    u32 a[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-      ldmatrix_x4(a[mt], a_rows + (mt * 16 + a_row) * STRIDE + kk * 32 + a_col);
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      u32 b[4];  // b0, b1 of n tile 2 np, then of n tile 2 np + 1
-      ldmatrix_x4(b, bt + (i * 32 + np * 16 + b_row) * STRIDE + kk * 32 + b_col);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        mma_u8(acc[mt][2 * np], a[mt], b[0], b[1]);
-        mma_u8(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
-      }
-    }
-  }
-
-  // Fragment (row g, columns 2t, 2t+1) and (row g + 8, the same columns).
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      int* p = c_tile + (mt * 16 + g) * STRIDE_W + nt * 8 + t2;
-      *reinterpret_cast<int2*>(p) = make_int2(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<int2*>(p + 8 * STRIDE_W) =
-          make_int2(acc[mt][nt][2], acc[mt][nt][3]);
-    }
-  __syncwarp();
-  int4 col[NW];  // col[w] = byte columns 4w .. 4w + 3 of this lane
-  const int4* mine = reinterpret_cast<const int4*>(c_tile + lane * STRIDE_W);
-#pragma unroll
-  for (int w = 0; w < NW; ++w) col[w] = mine[w];
-  __syncwarp();
-
-  // sum_m col[m] 2^(8m) into 32-bit words: below 2^269, so t[8] < 2^13.
-  u32 t[ACC];
-  u64 c = 0;
-#pragma unroll
-  for (int w = 0; w < NW; ++w) {
-    c += (u64)(u32)col[w].x + ((u64)(u32)col[w].y << 8) +
-         ((u64)(u32)col[w].z << 16) + ((u64)(u32)col[w].w << 24);
-    t[w] = (u32)c;
-    c >>= 32;
-  }
-  t[NW] = (u32)c;
-  t[NW + 1] = 0;
-#pragma unroll
-  for (int w = 0; w < NW; ++w) reduce_step<true>(t);  // below p + 2^13
-  return cond_sub(t, fe_p());
-}
+using namespace pb_a;
 
 __global__ void __launch_bounds__(TILE)
 poseidon_bn254_kernel(const long long* __restrict__ in, long long* __restrict__ out,
                       const u32* __restrict__ c, const uint8_t* __restrict__ mats,
                       int n) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  uint8_t* a_rows = smem + SM_A + warp * 32 * STRIDE;  // this warp's lanes
-  int* c_tile = reinterpret_cast<int*>(smem + SM_C + warp * 32 * STRIDE);
-  const long long first = (long long)blockIdx.x * TILE + warp * 32;
-
-  prefetch_matrix(smem + SM_B, mats, 0);
-
-  // The warp's 32 lanes, coalesced: two 16-bit limbs a 32-bit word, lane l's
-  // words into A row l; lanes past n read as 0 and are never stored.
-  const longlong2* src = reinterpret_cast<const longlong2*>(in + first * LIMBS);
-#pragma unroll 4
-  for (int l = 0; l < 32; ++l) {
-    u32 word = 0;
-    if (first + l < n) {
-      const longlong2 v = src[l * 32 + lane];
-      word = (u32)v.x | ((u32)v.y << 16);
-    }
-    reinterpret_cast<u32*>(a_rows + l * STRIDE)[lane] = word;
-  }
-  __syncwarp();
+  const Tile tl = tile(smem);
+  const long long first = (long long)blockIdx.x * TILE + (threadIdx.x >> 5) * 32;
+  prefetch_first(tl, mats);
   Fe s[WIDTH];
-  {
-    u32 ark0_t[ACC];
-    const uint4* mine = reinterpret_cast<const uint4*>(a_rows + lane * STRIDE);
-#pragma unroll
-    for (int e = 0; e < WIDTH; ++e) {
-      const uint4 lo = mine[2 * e], hi = mine[2 * e + 1];
-      zero(ark0_t);
-      add_fold(ark0_t, Fe{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}});
-      add_fold(ark0_t, load_const(c, OFF_ARK0 + e));
-      s[e] = low(ark0_t);  // canonical + ark < 2p
-    }
-  }
-
-#pragma unroll 1
-  for (int r = 0; r < ROUNDS; ++r) {
-    asm volatile("cp.async.wait_all;" ::: "memory");
-    __syncthreads();  // matrix r is in; the other buffer is free
-    if (r + 1 < ROUNDS) prefetch_matrix(smem + SM_B + ((r + 1) & 1) * ROW * STRIDE,
-                                        mats, r + 1);
-    const bool partial = r >= HALF_FULL && r < HALF_FULL + PARTIAL;
-    if (partial) {
-      s[0] = exp5_ark(s[0], load_const(c, OFF_PART_C + r - HALF_FULL));
-    } else {
-      const int off = r < HALF_FULL ? OFF_ARK_FIRST + r * WIDTH
-                                    : OFF_ARK_SECOND + (r - HALF_FULL - PARTIAL) * WIDTH;
-#pragma unroll
-      for (int e = 0; e < WIDTH; ++e) s[e] = exp5_ark(s[e], load_const(c, off + e));
-    }
-    store_row(a_rows + lane * STRIDE, s);
-    __syncwarp();
-    const uint8_t* bt = smem + SM_B + (r & 1) * ROW * STRIDE;
-#pragma unroll
-    for (int i = 0; i < WIDTH; ++i) s[i] = linear_out(a_rows, bt, c_tile, i, partial);
-  }
-
-  // The warp's 32 lanes out through the A rows, coalesced.
-  __syncwarp();
-  store_row(a_rows + lane * STRIDE, s);
-  __syncwarp();
-  longlong2* dst = reinterpret_cast<longlong2*>(out + first * LIMBS);
-#pragma unroll 4
-  for (int l = 0; l < 32; ++l) {
-    if (first + l < n) {
-      const u32 word = reinterpret_cast<const u32*>(a_rows + l * STRIDE)[lane];
-      dst[l * 32 + lane] = make_longlong2(word & 0xFFFFu, word >> 16);
-    }
-  }
+  load_tile(s, tl, in, first, n);
+  permute_tile(s, tl, c, mats, false);
+  store_tile(s, tl, out, first, n);
 }
+
+bool smem_set[MAX_DEVICES] = {};
 
 }  // namespace
 
@@ -330,18 +111,8 @@ extern "C" int p2t_poseidon_bn254_n_const() { return N_CONST; }
 // Returns the first CUDA error, else 0.
 extern "C" int p2t_poseidon_bn254_permute(const void* in, void* out, const void* consts,
                                           const void* mats, int n, void* stream) {
-  // The shared-memory limit is set once per device (setting it twice is
-  // harmless, so a race between threads costs nothing).
-  static bool smem_set[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES || !smem_set[dev]) {
-    err = cudaFuncSetAttribute(poseidon_bn254_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < MAX_DEVICES) smem_set[dev] = true;
-  }
+  const int err = allow_smem(poseidon_bn254_kernel, smem_set);
+  if (err) return err;
   if (n > 0) {
     poseidon_bn254_kernel<<<(n + TILE - 1) / TILE, TILE, SMEM, (cudaStream_t)stream>>>(
         (const long long*)in, (long long*)out, (const u32*)consts,

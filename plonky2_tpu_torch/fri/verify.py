@@ -2,10 +2,13 @@
 
 Counterpart of ``plonky2_tpu/fri/verify.py``.  Every check is a verdict-bit
 conjunction, so an invalid proof yields False without aborting the batch.
-Per-query quantities are shaped (B, Q).  Merkle leaves are hashed with one
-Poseidon-BN254 permutation call per absorb step over all (B, Q) lanes, and
-sibling paths with one call per tree level -- each call is one launch of the
-CUDA kernel on the GPU.  Digests are compared in the Montgomery domain.
+Per-query quantities are shaped (B, Q).  Every Merkle leaf hash and
+sibling path of a verification is one chain of Poseidon-BN254 permutations,
+and all of them run in one call (``fri/merkle.merkle_roots``: one launch of
+a chain kernel on the GPU).  ``_hash_leaves_scan`` and ``_merkle_chain``
+keep the JAX package's two scans, one permutation call a step, as the
+pieces the tests hold the chains against.  Digests are compared in the
+Montgomery domain.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from ..fields import goldilocks as gl
 from ..fields import goldilocks_ext as qe
 from ..fields import bn254
 from ..hash import poseidon_bn254 as pb
-from ..proof.serde import leaf_layout, absorb_slot_masks
+from . import merkle
 
 
 def _bits_to_index(bits):
@@ -153,21 +156,11 @@ def verify_fri(spec, dev, challenges, verdict, query_shard=None):
     else:
         cap_index = torch.zeros_like(x_index[0])
 
+    # --- every leaf hash and Merkle path: roots (B, Q, 4 + steps, 16),
+    # the initial oracles' then each reduction step's
+    roots = merkle.merkle_roots(merkle.merkle_plan(spec), dev, x_index)
+
     # --- initial tree Merkle proofs
-    layout = leaf_layout(spec)
-    per_oracle = []
-    for o in range(4):
-        if layout.noop[o]:
-            # HashOrNoop: a <= 3-element leaf's digest is its packed value
-            per_oracle.append(dev["init_leaf_packed"][:, :, o, 0, 0, :])
-        else:
-            n = layout.n_steps[o]
-            per_oracle.append(_hash_leaves_scan(
-                dev["init_leaf_packed"][:, :, o, :n], layout.slot_mask[o, :n]))
-    leaf_digests = torch.stack(per_oracle, dim=2)         # (B, Q, 4, 16)
-    bits4 = [b[..., None].expand(b.shape + (4,)) for b in bits]
-    roots = _merkle_chain(leaf_digests, dev["init_siblings"], bits4,
-                          spec.initial_tree_depth)        # (B, Q, 4, 16)
     caps = torch.stack([dev["const_sigmas_cap"], dev["wires_cap"],
                         dev["zs_pp_cap"], dev["quotient_cap"]], dim=1)
     for o in range(4):
@@ -209,12 +202,11 @@ def verify_fri(spec, dev, challenges, verdict, query_shard=None):
     # --- reduction steps; round j's coset starts at bit ``off`` of x_index
     off = 0
     for j, arity_bits in enumerate(spec.reduction_arity_bits):
-        arity = 1 << arity_bits
         within_bits = bits[:arity_bits]
         coset_bits = bits[arity_bits:]
         within_idx = _bits_to_index(within_bits)          # (B, Q)
 
-        evals = dev[f"step{j}_evals"]                     # QE (B, Q, arity)
+        evals = dev[f"step{j}_evals"]                     # QE (B, Q, 2^bits)
         # the eval at within_idx must equal the previous round's eval
         sel = tuple(tuple(torch.gather(c, -1, within_idx[..., None])[..., 0]
                           for c in comp) for comp in evals)
@@ -224,14 +216,9 @@ def verify_fri(spec, dev, challenges, verdict, query_shard=None):
                                        evals, challenges["fri_betas"][j])
 
         # Merkle check of the step evals against commit cap j
-        depth = spec.step_tree_depths[j]
-        smask = absorb_slot_masks(arity * 2)
-        assert smask.shape[0] == dev[f"step{j}_leaf_packed"].shape[2]
-        leaf_digest = _hash_leaves_scan(dev[f"step{j}_leaf_packed"], smask)
-        root_j = _merkle_chain(leaf_digest, dev[f"step{j}_siblings"],
-                               coset_bits, depth)
         expected = _cap_lookup(dev["commit_caps"][:, j], cap_index)
-        verdict = verdict & torch.all(bn254.eq(root_j, expected), dim=-1)
+        verdict = verdict & torch.all(bn254.eq(roots[..., 4 + j, :], expected),
+                                      dim=-1)
 
         for _ in range(arity_bits):
             subgroup_x = gl.mul(subgroup_x, subgroup_x)

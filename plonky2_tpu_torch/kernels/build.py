@@ -51,6 +51,8 @@ _SIGNATURES = {
     "p2t_qe_mul": [_DESC, _I, _P, _P],
     "p2t_coset_interp_scan": [_DESC, _U64S, _U64S, _INTS, _I, _I, _I, _P,
                               _P],
+    "p2t_merkle_chains_a": [_DESC, _P, _P, _P, _P],
+    "p2t_merkle_chains_cios": [_DESC, _P, _P, _P],
 }
 
 

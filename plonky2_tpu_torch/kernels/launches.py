@@ -9,6 +9,7 @@ nothing here (``torch.profiler`` sees those launches).
 
 from __future__ import annotations
 
+from . import fri_merkle as kf
 from . import goldilocks_ext as kq
 from . import goldilocks_mul as km
 from . import poseidon_bn254 as kb
@@ -28,7 +29,9 @@ def counters():
             "gl_mul": km.gl_mul,
             "gl_mul_const": km.gl_mul_const,
             "qe_mul": km.qe_mul,
-            "coset_interp_scan": km.coset_interp_scan}
+            "coset_interp_scan": km.coset_interp_scan,
+            "merkle_chains_a": kf.chains_a,
+            "merkle_chains_cios": kf.chains_cios}
 
 
 # The device kernel each counter's wrapper launches, as torch.profiler names
@@ -43,7 +46,9 @@ DEVICE_NAMES = {"poseidon_bn254": "poseidon_bn254_kernel",
                 "gl_mul": "gl_mul_kernel",
                 "gl_mul_const": "gl_mul_const_kernel",
                 "qe_mul": "qe_mul_kernel",
-                "coset_interp_scan": "coset_interp_scan_kernel"}
+                "coset_interp_scan": "coset_interp_scan_kernel",
+                "merkle_chains_a": "merkle_chains_a_kernel",
+                "merkle_chains_cios": "merkle_chains_cios_kernel"}
 
 
 def reset():

@@ -63,25 +63,38 @@ class StageTimer:
         return json.dumps(out)
 
 
+# A profile whose device trace came back empty is taken again, at most
+# EMPTY_TRACE_RETRIES times: on the H100 a short graph replay's profile has
+# come back without the kernels it launched (PERF.md §6).
+EMPTY_TRACE_RETRIES = 2
+
+
 def device_kernels(fn, device, names=None):
     """fn() once under ``torch.profiler``, ended by ``cuda.synchronize``:
     (wall s, device kernel and copy events seen, device busy s, {kernel:
     (launches, device s)}) for each name of ``names`` ({kernel: a substring
-    of its device name}, by default ``kernels.launches.DEVICE_NAMES``)."""
+    of its device name}, by default ``kernels.launches.DEVICE_NAMES``).  A
+    trace of no device event at all runs fn() again under a new profile
+    (``device_kernels.empty_traces`` counts them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ..kernels.launches import DEVICE_NAMES
 
     names = DEVICE_NAMES if names is None else names
-    torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(EMPTY_TRACE_RETRIES + 1):
         torch.cuda.synchronize(device)
-        wall = time.perf_counter() - t0
-    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+        on_device = [e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+        if on_device or attempt == EMPTY_TRACE_RETRIES:
+            break
+        device_kernels.empty_traces += 1
     busy = sum(e.time_range.elapsed_us() for e in on_device) / 1e6
     per_kernel = {}
     for key, needle in names.items():
@@ -89,6 +102,9 @@ def device_kernels(fn, device, names=None):
         per_kernel[key] = (len(hits),
                            sum(e.time_range.elapsed_us() for e in hits) / 1e6)
     return wall, len(on_device), busy, per_kernel
+
+
+device_kernels.empty_traces = 0
 
 
 def flops_report(spec) -> dict:

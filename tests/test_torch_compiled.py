@@ -9,9 +9,10 @@ shape.  Here:
   fixture at B=1, and a query shard of the tiny spec) creates no tensor from
   host data (``torch.as_tensor``, ``torch.tensor`` and ``torch.from_numpy``
   patched to fail) and dispatches no host-sync or host-data op, under a
-  ``TorchDispatchMode``, outside the three kernels' entry points
-  (``poseidon_bn254.permute`` and ``challenger.run_transcript``, whose plain
-  CPU versions stand in for the kernels);
+  ``TorchDispatchMode``, outside the kernels' entry points whose plain CPU
+  versions stand in for the kernels (``poseidon_bn254.permute``,
+  ``challenger.run_transcript`` and, since FRI's chain kernels,
+  ``fri.merkle.merkle_roots``);
 - the constant tables (``goldilocks.device_table``) are made once per
   content and device;
 - the shape check (``verifier.check_inputs``) raises on another B, another
@@ -29,6 +30,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from plonky2_tpu_torch import verifier
 from plonky2_tpu_torch.fields import goldilocks as gl
+from plonky2_tpu_torch.fri import merkle
 from plonky2_tpu_torch.hash import poseidon_bn254 as pb
 from plonky2_tpu_torch.proof import serde
 from plonky2_tpu_torch.proof.fixtures import load_fixture
@@ -88,6 +90,7 @@ def _probe(monkeypatch, run):
         return call
 
     monkeypatch.setattr(pb, "permute", opaque(pb.permute))
+    monkeypatch.setattr(merkle, "merkle_roots", opaque(merkle.merkle_roots))
     monkeypatch.setattr(chal, "run_transcript", opaque(chal.run_transcript))
     for name in ("as_tensor", "tensor", "from_numpy"):
         monkeypatch.setattr(torch, name, counted(name, getattr(torch, name)))

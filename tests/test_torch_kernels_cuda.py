@@ -16,14 +16,19 @@ import torch
 from plonky2_tpu_torch.fields import bn254
 from plonky2_tpu_torch.fields import goldilocks as gl
 from plonky2_tpu_torch.fields import goldilocks_ext as qe
+from plonky2_tpu_torch.fri import merkle
 from plonky2_tpu_torch.fri.verify import _pow_ok
 from plonky2_tpu_torch.hash import poseidon_bn254 as pb
 from plonky2_tpu_torch.hash import poseidon_gl as pgl
+from plonky2_tpu_torch.kernels import build
+from plonky2_tpu_torch.kernels import fri_merkle as kf
 from plonky2_tpu_torch.kernels import goldilocks_ext as kq
 from plonky2_tpu_torch.kernels import poseidon_bn254 as kb
 from plonky2_tpu_torch.kernels import poseidon_bn254_cios as kc
 from plonky2_tpu_torch.kernels import poseidon_gl_transcript as kt
+from plonky2_tpu_torch.proof import serde
 from plonky2_tpu_torch.proof.spec import load_circuit_spec
+from plonky2_tpu_torch.proof.synthetic import make_tiny_spec
 from plonky2_tpu_torch.transcript import challenger as chal
 
 pytestmark = pytest.mark.cuda
@@ -724,3 +729,119 @@ def test_pow_ok_on_a_cuda_tensor(dev, pow_bits):
     got = _pow_ok(pr, pow_bits)
     assert got.device == pr[0].device
     assert got.cpu().tolist() == [want for _, want in cases]
+
+
+# FRI's chain kernels (csrc/fri_merkle.cu) against merkle_roots_plain on the
+# card: random canonical limbs in the step circuit's layout at B=2 (336
+# chains: the CIOS group form), B=51 (8568 chains: the CIOS lane form, 1428
+# chains a kind, off the 64-chain tile), the tiny spec (noop oracles, cap
+# height 0) and a query window's views; a lane of garbage limbs computes its
+# own root and no other lane's.
+def _chain_dev(spec, B, Q, seed, dev):
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, (shape, _) in serde.proof_shapes(spec, Q).items():
+        if k.endswith(("leaf_packed", "siblings")):
+            v = rng.integers(0, 1 << 16, size=(B,) + shape, dtype=np.int64)
+            v[..., 15] &= 0x1FFF  # < 2^253 < p
+            out[k] = torch.as_tensor(v).to(dev)
+    return out
+
+
+def _chain_index(B, Q, bits, seed, dev):
+    rng = np.random.default_rng(seed)
+    v = rng.integers(0, 1 << bits, size=(B, Q), dtype=np.uint64)
+    return (torch.as_tensor((v & 0xFFFFFFFF).astype(np.int64)).to(dev),
+            torch.as_tensor((v >> 32).astype(np.int64)).to(dev))
+
+
+def _chain_case(name, dev, seed=90):
+    if name == "tiny":
+        spec, B, Q = make_tiny_spec(num_query_rounds=3), 5, 3
+    else:
+        spec = load_circuit_spec("testdata/step/common_circuit_data.json")
+        B, Q = {"step B=2": (2, 28), "step B=51": (51, 28)}[name]
+    return (merkle.merkle_plan(spec), _chain_dev(spec, B, Q, seed, dev),
+            _chain_index(B, Q, spec.lde_bits, seed + 1, dev))
+
+
+CHAIN_KERNELS = {"a": kf.chains_a, "cios": kf.chains_cios}
+
+
+@pytest.mark.parametrize("form", sorted(CHAIN_KERNELS))
+@pytest.mark.parametrize("case", ["step B=2", "step B=51", "tiny"])
+def test_merkle_chain_kernel_matches_plain(dev, case, form):
+    plan, d, x = _chain_case(case, dev)
+    kernel = CHAIN_KERNELS[form]
+    got, n = _counted(kernel, lambda: kernel(plan, d, x))
+    want = merkle.merkle_roots_plain(plan, d, x)
+    torch.cuda.synchronize()
+    assert n == 1 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("form", sorted(CHAIN_KERNELS))
+def test_merkle_chain_kernel_reads_a_query_window_in_place(dev, form):
+    plan, d, x = _chain_case("step B=2", dev)
+    window = {k: v[:, 20:27] for k, v in d.items()}
+    xw = tuple(t[:, 20:27] for t in x)
+    assert not window["init_siblings"].is_contiguous()
+    got = CHAIN_KERNELS[form](plan, window, xw)
+    dense = {k: v.contiguous() for k, v in window.items()}
+    want = merkle.merkle_roots_plain(plan, dense,
+                                     tuple(t.contiguous() for t in xw))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("form", sorted(CHAIN_KERNELS))
+def test_merkle_chain_kernel_keeps_a_garbage_lane_to_itself(dev, form):
+    plan, d, x = _chain_case("step B=2", dev)
+    want = merkle.merkle_roots_plain(plan, d, x)
+    bad = {k: v.clone() for k, v in d.items()}
+    for v in bad.values():
+        v[1, 5] = 0xFFFF  # limbs of 2^256 - 1: not a field element
+    got = CHAIN_KERNELS[form](plan, bad, x)
+    torch.cuda.synchronize()
+    moved = (got != want).any(-1)
+    assert moved[1, 5].all() and moved.sum() == len(plan)
+
+
+@pytest.mark.parametrize("form", sorted(CHAIN_KERNELS))
+def test_merkle_chain_kernel_is_captured_in_a_graph(dev, form):
+    """Captured once, the launch replays on new limbs written into its
+    inputs."""
+    plan, d, x = _chain_case("step B=2", dev)
+    _, fresh, fresh_x = _chain_case("step B=2", dev, seed=92)
+    kernel = CHAIN_KERNELS[form]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = kernel(plan, d, x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernel(plan, d, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    for k in d:
+        d[k].copy_(fresh[k])
+    for t, f in zip(x, fresh_x):
+        t.copy_(f)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, merkle.merkle_roots_plain(plan, fresh, fresh_x))
+
+
+def test_merkle_roots_dispatches_by_the_kernel_setting(dev):
+    plan, d, x = _chain_case("tiny", dev)
+    want = merkle.merkle_roots_plain(plan, d, x)
+    for impl, kernel in (("mxu", kf.chains_a), ("cios", kf.chains_cios)):
+        with pb.use_impl(impl):
+            got, n = _counted(kernel, lambda: merkle.merkle_roots(plan, d, x))
+        assert n == 1 and torch.equal(got, want)
+    with pytest.raises(ValueError):  # siblings on another device
+        kf.chains_a(plan, dict(d, init_siblings=d["init_siblings"].cpu()), x)
+    with pytest.raises(build.KernelError):  # the index on the CPU
+        kf.chains_a(plan, d, tuple(t.cpu() for t in x))
