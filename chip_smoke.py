@@ -53,7 +53,9 @@
    B=4, in turns A, CIOS, CIOS, A: each bit-exact against
    fri/merkle.merkle_roots_plain, as is the per-level form (one
    single-permutation launch an absorb step and tree level, 63 on step),
-   each timed in a CUDA graph beside the per-level form, with its bound;
+   each timed in a CUDA graph beside the per-level form, with its bound
+   and its launch's layout (slot types and their fill, blocks, registers,
+   spills, resident blocks an SM, waves);
 4. the main path under PLONKY2_TPU_PB_IMPL=mxu, through the compiled
    verifier (one CUDA graph per key, captured at the key's first call; the
    cache emptied first): verifies 256 copies of testdata/step with one
@@ -168,6 +170,7 @@ from plonky2_tpu_torch.gates import gates as G
 from plonky2_tpu_torch.hash import poseidon_bn254 as pb
 from plonky2_tpu_torch.hash import poseidon_gl as pgl
 from plonky2_tpu_torch.kernels import build
+from plonky2_tpu_torch.kernels import fri_merkle as kf
 from plonky2_tpu_torch.kernels import goldilocks_ext as kq
 from plonky2_tpu_torch.kernels import goldilocks_mul as km
 from plonky2_tpu_torch.kernels import launches as kernel_launches
@@ -1233,13 +1236,33 @@ def chain_bound(plan, lanes, rate, latency_s):
     return ms, by, form, latency, perms
 
 
+def chain_layout(plan, lanes, form, dev):
+    """How a chain-kernel launch of ``form`` (``a`` or ``cios``) lies on the
+    card (kernels/fri_merkle.geometry): its slot types and their fill, the
+    threads a lane, its blocks, the compiled kernel's registers and
+    spills, the blocks and warps an SM holds at once (the runtime's
+    occupancy) and the waves."""
+    geo = kf.geometry(plan, lanes, form, dev)
+    lim = kf.limits(dev, geo.kernel, geo.threads)
+    return {"kernel": geo.kernel,
+            "slot_types": [[plan[k].name for k in t] for t in geo.types],
+            "threads_a_lane": geo.tpl, "threads_a_block": geo.threads,
+            "blocks": geo.blocks, "registers": lim["registers"],
+            "spill_bytes": lim["spill_bytes"],
+            "resident_blocks_an_sm": lim["resident"],
+            "resident_warps_an_sm": lim["resident"] * geo.threads // 32,
+            "waves": geo.blocks / (lim["sms"] * lim["resident"]),
+            "slot_fill": geo.fill(plan)}
+
+
 def merkle_chain_phase(dev, card, rate, latency_s, cases):
     """FRI's chain kernels on each case's real inputs ({name: (spec,
     batch)}: the widened tensors and the transcript's query indices), in
     turns A, CIOS, CIOS, A: each kernel bit-exact against
     merkle_roots_plain, and so the per-level form (63 launches on step)
     under the same setting; each timed by CUDA events in a graph beside the
-    per-level form on the same inputs.  Returns {name: results}."""
+    per-level form on the same inputs, with its launch's layout
+    (``chain_layout``).  Returns {name: results}."""
     out = {}
     for name, (spec, batch) in cases.items():
         d, x = fri_inputs(spec, batch, dev)
@@ -1255,7 +1278,19 @@ def merkle_chain_phase(dev, card, rate, latency_s, cases):
              "plain_ms": plain_ms, "bound_ms": ms, "bound_by": by,
              "bound_form": form, "latency_bound_ms": latency,
              "ms": {"a": [], "cios": []},
-             "per_level_ms": {"a": [], "cios": []}, "max_abs_err": 0}
+             "per_level_ms": {"a": [], "cios": []}, "max_abs_err": 0,
+             "layout": {key: chain_layout(plan, lanes, key, dev)
+                        for key in ("a", "cios")}}
+        for key, lay in r["layout"].items():
+            print(f"merkle_chains {name} {key}: kernel {lay['kernel']}, "
+                  f"slot types {lay['slot_types']} (fill "
+                  f"{lay['slot_fill']:.3f}), threads a lane "
+                  f"{lay['threads_a_lane']}, {lay['blocks']} blocks of "
+                  f"{lay['threads_a_block']} threads, {lay['registers']} "
+                  f"registers, {lay['spill_bytes']} spill bytes, "
+                  f"{lay['resident_blocks_an_sm']} resident blocks an SM "
+                  f"({lay['resident_warps_an_sm']} warps), "
+                  f"{lay['waves']:.3f} waves")
         for impl in ("mxu", "cios", "cios", "mxu"):
             key, counter = CHAIN_FORMS[impl]
             kernel = kernel_launches.counters()[counter]
@@ -2192,8 +2227,10 @@ def main():
             "library_ms": NO_LIBRARY,
             "per_level_form_ms": float(np.mean(
                 step_chains["per_level_ms"][key])),
+            "layout": step_chains["layout"][key],
             "at_decode_block": {
-                k: (float(np.mean(v[key])) if isinstance(v, dict) else v)
+                k: (v[key] if k == "layout" else float(np.mean(v[key]))
+                    if isinstance(v, dict) else v)
                 for k, v in chains["decode_block B=4"].items()},
             "launches_in_one_replay": replay_kernels[impl][name][0],
             "device_s_in_one_replay": replay_kernels[impl][name][1],

@@ -11,12 +11,15 @@ HashOrNoop oracle, whose packed leaf is its digest), then climbs its tree
 (the sibling ordered by one bit of the query index, permute [0, 0, left,
 right]); its root is element 0 of its last state.
 
-``merkle_plan`` describes the kinds once per circuit.
-``merkle_roots`` gives every chain's root: on a CUDA tensor one launch of
-the chain kernel of the selected permutation form (``kernels/fri_merkle``,
-``hash/poseidon_bn254.kernel_impl``), on a CPU tensor ``merkle_roots_plain``,
-which runs the same schedule in plain torch: at step t one
-``permute_plain`` over every chain still running.
+``merkle_plan`` describes the kinds once per circuit, and ``slot_plan``
+orders them, or packs them into lane slots that run several kinds back to
+back, for the chain kernels' launch (``kernels/fri_merkle
+.launch_geometry``).  ``merkle_roots`` gives every chain's root: on a CUDA
+tensor one launch of the chain kernel of the selected permutation form
+(``kernels/fri_merkle``, ``hash/poseidon_bn254.kernel_impl``), on a CPU
+tensor ``merkle_roots_plain``, which runs every chain time-step-major in
+plain torch: at step t one ``permute_plain`` over every chain still
+running.
 """
 
 from __future__ import annotations
@@ -105,6 +108,36 @@ def merkle_plan(spec):
             _mask_bits(mask), f"step{j}_siblings", spec.step_tree_depths[j],
             offset))
     return tuple(kinds)
+
+
+def slot_plan(plan, pack=False):
+    """Slot types over the plan: a tuple of tuples of indices into
+    ``plan``, longest first (ties in plan order).  A lane slot of type
+    ``(k0, k1, ...)`` runs its lane's chain of kind k0, then its chain of
+    kind k1, ..., back to back.  Without ``pack`` each kind is a type of
+    its own.  With it the kinds are packed first fit, longest first, into
+    types whose lengths add up to at most the longest kind's: on step
+    [oracle1], [oracle0], [oracle2, step0], [oracle3, step1] (28, 22, 27
+    and 22 permutations; 88 % of the 4 x 28 slot steps busy, against 59 %
+    of 6 x 28).  A pure function of its arguments."""
+    order = sorted(range(len(plan)), key=lambda k: -plan[k].length)
+    if not pack:
+        return tuple((k,) for k in order)
+    cap = plan[order[0]].length if order else 0
+    bins = []
+    for k in order:
+        for b in bins:
+            if slot_length(plan, b) + plan[k].length <= cap:
+                b.append(k)
+                break
+        else:
+            bins.append([k])
+    return tuple(tuple(b) for b in bins)
+
+
+def slot_length(plan, kinds):
+    """Permutations a lane slot of the type ``kinds`` runs."""
+    return sum(plan[k].length for k in kinds)
 
 
 def _bit(x_index, bit):

@@ -53,6 +53,7 @@ _SIGNATURES = {
                               _P],
     "p2t_merkle_chains_a": [_DESC, _P, _P, _P, _P],
     "p2t_merkle_chains_cios": [_DESC, _P, _P, _P],
+    "p2t_merkle_chains_info": [_I, _I, _INTS],
 }
 
 

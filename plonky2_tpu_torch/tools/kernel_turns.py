@@ -24,17 +24,24 @@ a bit that it replaced), and the interpolation gate's scan on the step
 fixture's gate at 256 lanes (3 chunks of 6 steps; ``coset_interp_scan``
 with the gate's host schedule where the tree has it, else with the
 tensors the gate gathered for it before), each in a CUDA graph of 20 calls
-(the mean of 3 replays), since one launch takes a few microseconds;
-digests each kernel's
+(the mean of 3 replays), since one launch takes a few microseconds; times
+FRI's two chain kernels (``kernels/fri_merkle.chains_a`` and
+``chains_cios``, ``csrc/fri_merkle.cu``) on random canonical limbs in the
+step circuit's layout at B=256 and the decode_block circuit's at B=4
+(every query round), in turns A, CIOS, CIOS, A, each in a CUDA graph of
+``CHAIN_ITERS`` calls (the mean of 3 replays), after checking each against
+``fri/merkle.merkle_roots_plain`` bit for bit; digests each kernel's
 SASS (``cuobjdump -sass``; equal digests mean the same machine code), the
 transcript's output and the chains' and products' outputs; and keeps
 ``ptxas -v``'s lines of the build.  The same seed gives every process the
 same inputs, so the transcript, chain and product outputs of all processes
-must be equal.
+must be equal.  A tree without the chain kernels times neither, and its
+roots are left out of that check.
 
 Prints one JSON line per process, then a summary: per tree, each kernel's
 mean time (keys ``name@lanes`` for the BN254 kernels, ``name@lanesxn`` for
-the chains, ``qe_inv@shape`` and ``name@shape`` for the products), SASS
+the chains, ``qe_inv@shape`` and ``name@shape`` for the products,
+``merkle_chains_{a,cios}@{fixture}xB`` for FRI's chain kernels), SASS
 digest and instruction count, the sum over one step verification's calls,
 and its time over tree 0's, with the card's name and power limit.
 Exits 1 if a check fails.  Needs one CUDA device.
@@ -81,6 +88,10 @@ BITS_CALLS = [("subgroup_x", False, 7, 0, LDE_BITS),
 CONST_SHAPE = (256, 44)
 # The interpolation scan's lanes: a step batch's.
 SCAN_LANES = 256
+# FRI's chain kernels: (fixture, B) at every query round of the circuit, and
+# the calls a graph holds (a step batch's launch takes some 10 ms).
+CHAIN_CASES = [("step", 256), ("decode_block", 4)]
+CHAIN_ITERS = 5
 # kernel key -> a substring of its mangled name only it has
 KERNELS = {"poseidon_bn254": "poseidon_bn254_kernel",
            "poseidon_bn254_cios": "poseidon_bn254_cios_kernel",
@@ -89,7 +100,9 @@ KERNELS = {"poseidon_bn254": "poseidon_bn254_kernel",
            "qe_powers": "qe_powers_kernel",
            "qe_inv": "qe_inv_kernel",
            "gl_mul_const": "gl_mul_const_kernel",
-           "coset_interp_scan": "coset_interp_scan_kernel"}
+           "coset_interp_scan": "coset_interp_scan_kernel",
+           "merkle_chains_a": "merkle_chains_a_kernel",
+           "merkle_chains_cios": "merkle_chains_cios_kernel"}
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 
 
@@ -218,6 +231,59 @@ def scan_call(G, gl, qe, gate, inter_eval, inter_prod, values, pt):
     return lambda: G.coset_interp_scan(*args)
 
 
+def chain_inputs(spec, B, seed, dev):
+    """Random canonical limbs (below 2^253) in ``spec``'s leaf and sibling
+    layout and random query indices below 2^lde_bits, B proofs of every
+    query round: (tensor dict, index pair)."""
+    import torch
+
+    from plonky2_tpu_torch.proof import serde
+
+    rng = np.random.default_rng(seed)
+    d = {}
+    for k, (shape, _) in serde.proof_shapes(spec).items():
+        if k.endswith(("leaf_packed", "siblings")):
+            v = rng.integers(0, 1 << 16, size=(B,) + shape, dtype=np.int64)
+            v[..., 15] &= 0x1FFF
+            d[k] = torch.as_tensor(v).to(dev)
+    v = rng.integers(0, 1 << spec.lde_bits, size=(B, spec.num_query_rounds),
+                     dtype=np.uint64)
+    return d, (torch.as_tensor((v & 0xFFFFFFFF).astype(np.int64)).to(dev),
+               torch.as_tensor((v >> 32).astype(np.int64)).to(dev))
+
+
+def time_chains(dev, graph_ms):
+    """{key: [ms, ms]} of FRI's two chain kernels at CHAIN_CASES in turns A,
+    CIOS, CIOS, A, each checked against merkle_roots_plain; and the roots'
+    bytes.  Empty where the tree has no chain kernel."""
+    import torch
+
+    try:
+        from plonky2_tpu_torch.fri import merkle
+        from plonky2_tpu_torch.kernels import fri_merkle as kf
+    except ImportError:
+        return {}, b""
+    from plonky2_tpu_torch.proof.spec import load_circuit_spec
+
+    ms, roots = {}, []
+    for fixture, B in CHAIN_CASES:
+        spec = load_circuit_spec(Path.cwd() / "testdata" / fixture
+                                 / "common_circuit_data.json")
+        plan = merkle.merkle_plan(spec)
+        d, x = chain_inputs(spec, B, SEED + B, dev)
+        want = merkle.merkle_roots_plain(plan, d, x)
+        for form in ("a", "cios", "cios", "a"):
+            fn = getattr(kf, f"chains_{form}")
+            got = fn(plan, d, x)
+            if not torch.equal(got, want):
+                raise AssertionError(f"merkle_chains_{form} differs from "
+                                     f"merkle_roots_plain on {fixture} B={B}")
+            ms.setdefault(f"merkle_chains_{form}@{fixture}x{B}", []).append(
+                graph_ms(lambda: fn(plan, d, x), CHAIN_ITERS))
+        roots.append(want.cpu().numpy().tobytes())
+    return ms, b"".join(roots)
+
+
 def turn_order(n_trees):
     """Trees in the order 0, 1, ..., k, k, ..., 1, 0; tree 0 once alone."""
     up = list(range(n_trees))
@@ -255,8 +321,9 @@ def _child():
         torch.cuda.synchronize()
         return start.elapsed_time(end) / ITERS
 
-    def graph_ms(fn):
-        """One fn() in a CUDA graph of ITERS calls, the mean of 3 replays."""
+    def graph_ms(fn, iters=ITERS):
+        """One fn() in a CUDA graph of ``iters`` calls, the mean of 3
+        replays."""
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -264,7 +331,7 @@ def _child():
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            for _ in range(ITERS):
+            for _ in range(iters):
                 fn()
         graph.replay()
         torch.cuda.synchronize()
@@ -275,7 +342,7 @@ def _child():
             graph.replay()
         end.record()
         torch.cuda.synchronize()
-        return start.elapsed_time(end) / (3 * ITERS)
+        return start.elapsed_time(end) / (3 * iters)
 
     def qe_vals(shape):
         return tuple(tuple(t.reshape(shape) for t in gl.split_u64(
@@ -354,6 +421,8 @@ def _child():
     prod_digest = hashlib.sha256(b"".join(
         t.cpu().numpy().tobytes()
         for t in torch.utils._pytree.tree_leaves(prod_out))).hexdigest()[:16]
+    chain_ms, roots = time_chains(dev, graph_ms)
+    ms.update(chain_ms)
 
     cuobjdump = (shutil.which("cuobjdump")
                  or "/usr/local/cuda/bin/cuobjdump")
@@ -365,6 +434,8 @@ def _child():
     print(json.dumps({"ms": ms, "transcript_digest": digest,
                       "chain_digest": chain_digest,
                       "product_digest": prod_digest,
+                      "roots_digest": (hashlib.sha256(roots).hexdigest()[:16]
+                                       if roots else None),
                       "sass": sass_digests(sass), "ptxas": ptxas}))
 
 
@@ -397,9 +468,10 @@ def main(argv=None):
         run = {"tree": i, **json.loads(proc.stdout.strip().splitlines()[-1])}
         print(json.dumps(run))
         runs.append(run)
-    for key in ("transcript_digest", "chain_digest", "product_digest"):
-        digests = {run[key] for run in runs}
-        if len(digests) != 1:
+    for key in ("transcript_digest", "chain_digest", "product_digest",
+                "roots_digest"):
+        digests = {run[key] for run in runs if run[key] is not None}
+        if len(digests) > 1:
             print(f"kernel_turns: the outputs differ ({key}): {digests}",
                   file=sys.stderr)
             return 1

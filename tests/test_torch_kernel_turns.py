@@ -160,3 +160,22 @@ def test_plain_turns_summary_takes_medians():
     assert got[0]["median_s"] == {"8": 2.0}
     assert got[1]["median_s"] == {"8": 2.0}
     assert got[1]["tree_0_over_this"] == {"8": 1.0}
+
+
+def test_chain_layouts_cover_each_form_s_layouts(monkeypatch):
+    """``tools/chain_layouts``: every layout of a form runs each chain once
+    (packed or a kind a type), and without a GPU the tool exits 2."""
+    import torch
+
+    from plonky2_tpu_torch.fri import merkle
+    from plonky2_tpu_torch.proof.synthetic import make_tiny_spec
+    from plonky2_tpu_torch.tools import chain_layouts as cl
+
+    plan = merkle.merkle_plan(make_tiny_spec())
+    for form, wide in (("a", ("pair", 2)), ("cios", ("group", 4))):
+        got = cl.layouts(plan, form)
+        assert got == {"lane": (merkle.slot_plan(plan), 1),
+                       "lane packed": (merkle.slot_plan(plan, pack=True), 1),
+                       wide[0]: (merkle.slot_plan(plan), wide[1])}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cl.main([]) == 2

@@ -733,10 +733,12 @@ def test_pow_ok_on_a_cuda_tensor(dev, pow_bits):
 
 # FRI's chain kernels (csrc/fri_merkle.cu) against merkle_roots_plain on the
 # card: random canonical limbs in the step circuit's layout at B=2 (336
-# chains: the CIOS group form), B=51 (8568 chains: the CIOS lane form, 1428
-# chains a kind, off the 64-chain tile), the tiny spec (noop oracles, cap
-# height 0) and a query window's views; a lane of garbage limbs computes its
-# own root and no other lane's.
+# chains: kernel A's pair form, the CIOS group form), B=51 (8568 chains,
+# 1428 lanes a kind, ragged blocks), B=97 (16,296: the CIOS lane form with
+# the kinds packed, two kinds back to back in a lane slot), B=256 (the main
+# path's 43,008: both lane forms), the tiny spec (noop oracles, cap height
+# 0) and a query window's views; a lane of garbage limbs computes its own
+# root and no other lane's.
 def _chain_dev(spec, B, Q, seed, dev):
     rng = np.random.default_rng(seed)
     out = {}
@@ -760,7 +762,8 @@ def _chain_case(name, dev, seed=90):
         spec, B, Q = make_tiny_spec(num_query_rounds=3), 5, 3
     else:
         spec = load_circuit_spec("testdata/step/common_circuit_data.json")
-        B, Q = {"step B=2": (2, 28), "step B=51": (51, 28)}[name]
+        B, Q = {"step B=2": (2, 28), "step B=51": (51, 28),
+                "step B=97": (97, 28), "step B=256": (256, 28)}[name]
     return (merkle.merkle_plan(spec), _chain_dev(spec, B, Q, seed, dev),
             _chain_index(B, Q, spec.lde_bits, seed + 1, dev))
 
@@ -769,7 +772,8 @@ CHAIN_KERNELS = {"a": kf.chains_a, "cios": kf.chains_cios}
 
 
 @pytest.mark.parametrize("form", sorted(CHAIN_KERNELS))
-@pytest.mark.parametrize("case", ["step B=2", "step B=51", "tiny"])
+@pytest.mark.parametrize("case", ["step B=2", "step B=51", "step B=97",
+                                  "step B=256", "tiny"])
 def test_merkle_chain_kernel_matches_plain(dev, case, form):
     plan, d, x = _chain_case(case, dev)
     kernel = CHAIN_KERNELS[form]
@@ -832,6 +836,34 @@ def test_merkle_chain_kernel_is_captured_in_a_graph(dev, form):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, merkle.merkle_roots_plain(plan, fresh, fresh_x))
+
+
+# The layout each case launches on the card (kernels/fri_merkle
+# .launch_geometry): the compiled kernel and whether the kinds are packed.
+CHAIN_LAYOUTS = {("step B=2", "a"): ("a_pair", False),
+                 ("step B=2", "cios"): ("cios_group", False),
+                 ("step B=97", "a"): ("a_pair", False),
+                 ("step B=97", "cios"): ("cios_lane", True),
+                 ("step B=256", "a"): ("a_lane", False),
+                 ("step B=256", "cios"): ("cios_lane", False)}
+
+
+@pytest.mark.parametrize("case, form", sorted(CHAIN_LAYOUTS))
+def test_merkle_chain_layout_on_the_card(dev, case, form):
+    """Each form's layout at the cases the kernel test runs, and the
+    compiled kernels' registers: kernel A's forms and the CIOS group form
+    spill nothing."""
+    plan, _, x = _chain_case(case, dev)
+    B, Q = x[0].shape
+    geo = kf.geometry(plan, B * Q, form, dev)
+    kernel, packed = CHAIN_LAYOUTS[case, form]
+    assert geo.kernel == kernel
+    assert geo.types == merkle.slot_plan(plan, pack=packed)
+    lim = kf.limits(dev, geo.kernel, geo.threads)
+    assert lim["resident"] >= 1 and lim["max_threads"] >= geo.threads
+    if kernel != "cios_lane":
+        assert lim["spill_bytes"] == 0
+    assert geo.blocks == len(geo.types) * -(-B * Q * geo.tpl // geo.threads)
 
 
 def test_merkle_roots_dispatches_by_the_kernel_setting(dev):
