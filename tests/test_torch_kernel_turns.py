@@ -141,7 +141,8 @@ def test_plain_turns_times_the_plain_permutation():
     out = subprocess.run(
         [sys.executable, "-m", "plonky2_tpu_torch.tools.plain_turns",
          "--lanes", "2", "--reps", "1"],
-        cwd=pt.REPO, capture_output=True, text=True, check=True)
+        cwd=pt.REPO, capture_output=True, text=True, check=True,
+        timeout=120)
     lines = [json.loads(x) for x in out.stdout.strip().splitlines()]
     assert [r["tree"] for r in lines[:-1]] == [0]
     summary = lines[-1]["per_tree"]
