@@ -47,7 +47,12 @@
    version (every product plain), and the bit-selected product at its 3
    calls beside the loop it replaced; the Poseidon-BN254 rows carry a
    latency bound beside their throughput bound, and the scan its two forms'
-   bounds and chains; FRI's chain kernels (csrc/fri_merkle.cu, every
+   bounds and chains; FRI's leaf-block builder (csrc/fri_leaves.cu) on
+   the leaves of step B=256 and decode_block B=4, bit-exact against
+   fri/merkle.leaf_blocks_plain on the same tensors and against the
+   blocks ingest packed on the host, timed in a CUDA graph of 20 launches
+   beside its plain version (one call) and its bytes bound; FRI's chain
+   kernels (csrc/fri_merkle.cu, every
    leaf sponge and Merkle climb of a verification in one launch) on the
    main path's real inputs, step B=256 (43,008 chains) and decode_block
    B=4, in turns A, CIOS, CIOS, A: each bit-exact against
@@ -64,7 +69,8 @@
    False, False]); the Python launch counters, which see a key's eager
    warm-up and its capture but no replay, must read FRI's chain kernel
    merkle_chains_a 4 times (2 x 2: one launch a verification, where the
-   per-level form launched kernel A 63 and 60 times), the
+   per-level form launched kernel A 63 and 60 times) and FRI's leaf-block
+   builder 4 times (one launch a verification), the
    single-permutation kernels never, the transcript kernel 4 times, the public-input sponge 2
    times (step has 36 public inputs, decode_block none), QE Horner 32, QE
    powers 8 and QE inverse 28 times (8, 2 and 7 a verification), the
@@ -84,9 +90,9 @@
    their own verdicts; the graph's inputs are the narrow layout (every
    static input int32, the batch packed into a pinned buffer and copied in
    one transfer), whose bytes a call are printed beside the int64
-   layout's; one replay under torch.profiler launches the chain kernel
-   of the setting once (the per-level form: kernel A or the CIOS kernel 63
-   times), the transcript kernel twice (the sponge and the
+   layout's; one replay under torch.profiler launches the leaf-block
+   builder and the chain kernel of the setting once (the per-level form:
+   kernel A or the CIOS kernel 63 times), the transcript kernel twice (the sponge and the
    transcript), QE Horner 8, QE powers 2 and QE inverse 7 times, the
    products 16, 17 and 154 times and the interpolation scan once, and gives
    the device's events (against 9,180 with a Poseidon-BN254 launch an
@@ -170,6 +176,7 @@ from plonky2_tpu_torch.gates import gates as G
 from plonky2_tpu_torch.hash import poseidon_bn254 as pb
 from plonky2_tpu_torch.hash import poseidon_gl as pgl
 from plonky2_tpu_torch.kernels import build
+from plonky2_tpu_torch.kernels import fri_leaves as kl
 from plonky2_tpu_torch.kernels import fri_merkle as kf
 from plonky2_tpu_torch.kernels import goldilocks_ext as kq
 from plonky2_tpu_torch.kernels import goldilocks_mul as km
@@ -212,6 +219,9 @@ BN254_SBOX_IMADS = 88 * 128 + 176 * 72
 BN254_CIOS_IMADS = BN254_SBOX_IMADS + (520 + 520) * 128
 BN254_TC_IMADS = BN254_SBOX_IMADS + 520 * 128
 BN254_TC_INT8_OPS = 64 * 128 * 128 * 2
+# FRI's leaf-block builder: one Montgomery product by R^2 (a 256-bit
+# product and its reduction, 2 x 128 IMADs) a slot that holds elements.
+LEAF_SLOT_IMADS = 2 * 128
 # A Poseidon-GL permutation: 118 x^7 S-boxes (8 full rounds of 12, 22
 # partial) of 2 products and 2 squarings, the 11 x 11 initial matrix and
 # 22 sparse partial-round layers of 23 products; a product of 2 x 2 32-bit
@@ -254,6 +264,9 @@ TRANSCRIPT_BATCHES = [1, 3, 17, STEP_BATCH, STEP_BATCH + 1]
 # decode_block; the main path launches it no more (tools/micro_pb does).
 CAPTURE_RUNS = 2
 CHAIN_KERNEL_LAUNCHES = 1
+# FRI's absorb blocks, built from the batch's leaves: one launch of the
+# block builder (csrc/fri_leaves.cu) a verification, before the chains.
+LEAF_BLOCK_LAUNCHES = 1
 PER_LEVEL_BN254_LAUNCHES = {"step": 63, "decode_block": 60}
 # FRI's chain kernel of each Poseidon-BN254 setting: (form, wrapper's
 # counter name).
@@ -291,7 +304,8 @@ PHASE_LAUNCHES = {
     "plonk": {"poseidon_gl_transcript": 2, "qe_horner": 5, "qe_inv": 1,
               "gl_mul": 4, "gl_mul_const": 12, "qe_mul": 128,
               "coset_interp_scan": 1},
-    "fri": {"chains": CHAIN_KERNEL_LAUNCHES, "poseidon_gl_transcript": 2,
+    "fri": {"chains": CHAIN_KERNEL_LAUNCHES,
+            "fri_leaf_blocks": LEAF_BLOCK_LAUNCHES, "poseidon_gl_transcript": 2,
             "qe_horner": 3, "qe_powers": 2, "qe_inv": 6, "gl_mul": 12,
             "gl_mul_const": 5, "qe_mul": 26}}
 # A step replay issued 367,045 device events while the chains and the
@@ -1188,12 +1202,70 @@ def time_bits_form(dev, rng, rate, spec):
 
 
 def fri_inputs(spec, batch, dev):
-    """The widened tensor dict of ``batch`` on the card and its query
-    indices from the transcript, as verify_device reaches FRI."""
+    """The widened tensor dict of ``batch`` on the card with the leaves'
+    absorb blocks that FRI builds (``fri/merkle.leaf_blocks``) and its
+    query indices from the transcript, as FRI's chains take them."""
     schedule, d, obs = verifier.prepare(spec, batch, dev)
     states = chal.run_transcript(schedule, obs,
                                  pgl.hash_no_pad(d["public_inputs"]))
+    d.update(merkle.leaf_blocks(spec, d))
     return d, verifier._extract_challenges(schedule, states)["query_indices"]
+
+
+def leaf_block_bound(spec, d, out, rate):
+    """(ms, what bounds it, bytes written, bytes read, products) of one
+    build of ``out`` (the blocks) from the leaves of ``spec`` in ``d``:
+    every block written once, every leaf's word planes read once, and one
+    Montgomery product a slot that holds elements."""
+    written = sum(v.numel() * v.element_size() for v in out.values())
+    read, slots = 0, 0
+    for src in merkle.leaf_sources(spec):
+        planes = [w for pair in merkle.leaf_planes(src, d) for w in pair]
+        read += sum(w.numel() * w.element_size() for w in planes)
+        slots += planes[0].shape[0] * planes[0].shape[1] * -(-src.n // 3)
+    ms, by = bound(slots * LEAF_SLOT_IMADS / rate * 1e3, written + read)
+    return ms, by, written, read, slots
+
+
+def leaf_block_phase(dev, card, rate, cases):
+    """FRI's leaf-block builder (``kernels/fri_leaves.leaf_blocks``) on
+    each case's real leaves ({name: (spec, batch)}, widened on the card as
+    verify_device holds them): bit for bit against its plain version
+    (``fri/merkle.leaf_blocks_plain``) on the same tensors and against the
+    blocks ingest packed on the host into the batch; the kernel timed in a
+    CUDA graph of GRAPH_LAUNCHES, the plain version once.  Returns {name:
+    results}."""
+    out = {}
+    for name, (spec, batch) in cases.items():
+        _, d, _ = verifier.prepare(spec, batch, dev)
+        before = kl.leaf_blocks.launches
+        got = kl.leaf_blocks(spec, d)
+        if kl.leaf_blocks.launches != before + LEAF_BLOCK_LAUNCHES:
+            raise AssertionError(f"{name}: the builder launched "
+                                 f"{kl.leaf_blocks.launches - before} times")
+        want, plain_ms = timed_once(lambda: merkle.leaf_blocks_plain(spec, d))
+        err = 0
+        for k, v in want.items():
+            ingest = torch.as_tensor(batch[k].astype(np.int64)).to(dev)
+            for what, ref in (("its plain version", v), ("ingest", ingest)):
+                if not torch.equal(got[k], ref):
+                    raise AssertionError(
+                        f"{name}: the builder's {k} differs from {what} at "
+                        f"{(got[k] != ref).nonzero().tolist()[:8]}")
+            err = max(err, int((got[k] - v).abs().max()))
+        ms, by, written, read, slots = leaf_block_bound(spec, d, got, rate)
+        r = {"shape": {k: list(v.shape) for k, v in got.items()},
+             "ms": graph_ms(lambda: kl.leaf_blocks(spec, d)),
+             "plain_ms": plain_ms, "bound_ms": ms, "bound_by": by,
+             "bytes_written": written, "bytes_read": read,
+             "products": slots, "max_abs_err": err}
+        print(f"fri_leaf_blocks {name}: kernel {r['ms']:.5f} ms (a CUDA "
+              f"graph of {GRAPH_LAUNCHES}), plain {plain_ms:.3f} ms (one "
+              f"call); {written} B written, {read} B read, {slots} "
+              f"products; bound {ms:.5f} ms ({by}); bit-exact against the "
+              f"plain version and ingest's blocks [{card}]")
+        out[name] = r
+    return out
 
 
 def per_level_scans(spec, plan, d, x):
@@ -1346,11 +1418,13 @@ def decode_block_batch():
 
 def per_verify(fixture, impl):
     """Each kernel's launches in one verification of ``fixture`` under
-    PLONKY2_TPU_PB_IMPL=``impl``: the chain kernel of the setting once, the
-    single-permutation Poseidon-BN254 kernels never."""
+    PLONKY2_TPU_PB_IMPL=``impl``: the leaf-block builder and the chain
+    kernel of the setting once, the single-permutation Poseidon-BN254
+    kernels never."""
     used = CHAIN_FORMS[impl][1]
     unused = CHAIN_FORMS["mxu" if impl == "cios" else "cios"][1]
-    return {used: CHAIN_KERNEL_LAUNCHES, unused: 0, "poseidon_bn254": 0,
+    return {used: CHAIN_KERNEL_LAUNCHES, unused: 0,
+            "fri_leaf_blocks": LEAF_BLOCK_LAUNCHES, "poseidon_bn254": 0,
             "poseidon_bn254_cios": 0, "poseidon_gl_transcript": 1,
             "poseidon_gl_pi_hash": PI_HASH_LAUNCHES[fixture], **CHAIN_LAUNCHES,
             **PRODUCT_LAUNCHES[fixture]}
@@ -2024,10 +2098,12 @@ def main():
     expected[CORRUPT_LANE] = False
     args = (dev, spec_step, batch_step, expected, spec_db, batch_db, mask_db)
 
-    # -- 2b. FRI's chain kernels on the main path's inputs, in turns
-    chains = merkle_chain_phase(dev, card, rate, latency_s, {
-        f"step B={STEP_BATCH}": (spec_step, batch_step),
-        "decode_block B=4": (spec_db, batch_db)})
+    # -- 2b. FRI's leaf-block builder and chain kernels on the main path's
+    #        inputs, the chains in turns
+    fri_cases = {f"step B={STEP_BATCH}": (spec_step, batch_step),
+                 "decode_block B=4": (spec_db, batch_db)}
+    leaf = leaf_block_phase(dev, card, rate, fri_cases)
+    chains = merkle_chain_phase(dev, card, rate, latency_s, fri_cases)
 
     torch.cuda.reset_peak_memory_stats(dev)
     got_db, launches, launches_step, step_s = main_path("mxu", *args)
@@ -2235,6 +2311,19 @@ def main():
             "launches_in_one_replay": replay_kernels[impl][name][0],
             "device_s_in_one_replay": replay_kernels[impl][name][1],
             "launches_on_parallel_paths": on_parallel_paths(name)})
+    step_leaf = leaf[f"step B={STEP_BATCH}"]
+    kernels.append({
+        "name": "fri_leaf_blocks", "route": "cuda",
+        "source": "plonky2_tpu_torch/csrc/fri_leaves.cu",
+        "replaces": "plonky2_tpu/proof/serde.py:74",
+        "launches": launches["fri_leaf_blocks"],
+        "max_abs_err": max(r["max_abs_err"] for r in leaf.values()),
+        **step_leaf, "library_ms": NO_LIBRARY,
+        "at_decode_block": leaf["decode_block B=4"],
+        "launches_in_one_replay": replay_kernels["mxu"]["fri_leaf_blocks"][0],
+        "device_s_in_one_replay":
+            replay_kernels["mxu"]["fri_leaf_blocks"][1],
+        "launches_on_parallel_paths": on_parallel_paths("fri_leaf_blocks")})
     for name, replaces in (
             ("qe_horner", "plonky2_tpu/fields/goldilocks_ext.py:226"),
             ("qe_powers", "plonky2_tpu/fields/goldilocks_ext.py:237"),

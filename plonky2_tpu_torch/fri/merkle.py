@@ -11,6 +11,15 @@ HashOrNoop oracle, whose packed leaf is its digest), then climbs its tree
 (the sibling ordered by one bit of the query index, permute [0, 0, left,
 right]); its root is element 0 of its last state.
 
+A chain absorbs its leaf as blocks of BN254 elements in Montgomery form,
+each of up to 3 Goldilocks elements packed into one integer (sum v_k
+2^(64 k); reference poseidon/bn254.go:47-77).  ``leaf_blocks`` builds them
+from the batch's own leaves (the initial oracles' ``init_leaves_<o>``, each
+step's ``step<j>_evals``): on a CUDA tensor one launch of the block
+builder (``kernels/fri_leaves``), on a CPU tensor ``leaf_blocks_plain``.
+So the Merkle check hashes the very elements FRI's evaluation check reads,
+and no derived copy of them travels from the host.
+
 ``merkle_plan`` describes the kinds once per circuit, and ``slot_plan``
 orders them, or packs them into lane slots that run several kinds back to
 back, for the chain kernels' launch (``kernels/fri_merkle
@@ -30,6 +39,7 @@ import functools
 import numpy as np
 import torch
 
+from ..fields import bn254
 from ..fields import goldilocks as gl
 from ..hash import poseidon_bn254 as pb
 from ..proof.serde import absorb_slot_masks, leaf_layout
@@ -41,10 +51,11 @@ class ChainKind:
 
     ``leaf_key`` names the leaf blocks in the tensor dict, (B, Q, T, 3, 16)
     (an initial oracle's at index ``oracle`` of axis 2 of
-    ``init_leaf_packed``); ``steps`` absorb steps (0 for HashOrNoop), whose
-    ``mask`` has bit 3 t + s set where step t absorbs slot s; ``sib_key``
-    the siblings, (B, Q, depth, 16) (an oracle's at ``oracle`` of axis 2);
-    level l reads bit ``offset + l`` of the query index."""
+    ``init_leaf_packed``; ``leaf_blocks`` makes them); ``steps`` absorb
+    steps (0 for HashOrNoop), whose ``mask`` has bit 3 t + s set where
+    step t absorbs slot s; ``sib_key`` the siblings, (B, Q, depth, 16) (an
+    oracle's at ``oracle`` of axis 2); level l reads bit ``offset + l`` of
+    the query index."""
     name: str
     leaf_key: str
     oracle: int | None
@@ -138,6 +149,99 @@ def slot_plan(plan, pack=False):
 def slot_length(plan, kinds):
     """Permutations a lane slot of the type ``kinds`` runs."""
     return sum(plan[k].length for k in kinds)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSource:
+    """One leaf's Goldilocks elements and the absorb blocks made of them.
+
+    ``key`` names the elements in the tensor dict: an initial oracle's
+    ``init_leaves_<o>``, a GL pair (B, Q, n), or a reduction step's
+    ``step<j>_evals``, a QE pair (B, Q, n / 2) read (c0, c1) an eval
+    (``comps`` 2), as ingest flattens them.  Its ``n`` elements fill
+    ``steps`` blocks of 3 slots of 3 elements in order, zeros past the
+    last; the blocks go to index ``oracle`` of axis 2 of ``block_key``'s
+    (B, Q, 4, steps, 3, 16), or for a step to ``block_key``'s (B, Q,
+    steps, 3, 16), as ingest laid out ``init_leaf_packed`` and
+    ``step<j>_leaf_packed``."""
+    key: str
+    n: int
+    comps: int
+    block_key: str
+    oracle: int | None
+    steps: int
+
+
+@functools.lru_cache(maxsize=16)
+def leaf_sources(spec):
+    """The leaves of a verification of ``spec``, in ``merkle_plan``'s
+    order: the four initial oracles' (``max_steps`` blocks each, the steps
+    past an oracle's own and a HashOrNoop oracle's slots past 0 zero), then
+    each reduction step's."""
+    layout = leaf_layout(spec)
+    out = [LeafSource(f"init_leaves_{o}", size, 1, "init_leaf_packed", o,
+                      layout.max_steps)
+           for o, size in enumerate(spec.oracle_leaf_sizes)]
+    for j, arity_bits in enumerate(spec.reduction_arity_bits):
+        n = (1 << arity_bits) * 2
+        out.append(LeafSource(f"step{j}_evals", n, 2, f"step{j}_leaf_packed",
+                              None, absorb_slot_masks(n).shape[0]))
+    return tuple(out)
+
+
+def leaf_planes(src, dev):
+    """The 32-bit word planes of ``src``'s elements in ``dev``: ((lo, hi),)
+    for an oracle's leaves, ((lo, hi), (lo, hi)) of c0 and c1 for a step's
+    evals, each (B, Q, n / comps) int64."""
+    v = dev[src.key]
+    return (v,) if src.comps == 1 else v
+
+
+# R^2 mod p: a Montgomery product by it takes x to x R mod p, its
+# Montgomery form
+R2_LIMBS = bn254.int_to_limbs(bn254.R * bn254.R)
+
+
+def pack_blocks_plain(planes, steps):
+    """Plain torch: the absorb blocks of one leaf, (B, Q, steps, 3, 16)
+    canonical Montgomery limbs, from its word planes (``leaf_planes``): the
+    elements in order (c0, c1 an eval where two planes are given), zeros
+    past the last, 3 a slot packed into sum v_k 2^(64 k) (below 2^192 < p),
+    then one Montgomery product by R^2.  What ingest's ``_pack_leaf_mont``
+    gives, the empty slots zero."""
+    lo = torch.stack([p[0] for p in planes], -1).flatten(-2)
+    hi = torch.stack([p[1] for p in planes], -1).flatten(-2)
+    pad = 9 * steps - lo.shape[-1]
+    words = torch.stack([torch.nn.functional.pad(lo, (0, pad)),
+                         torch.nn.functional.pad(hi, (0, pad))], -1)
+    words = words.reshape(lo.shape[:-1] + (steps, 3, 6))  # lo0 hi0 .. hi2
+    limbs = torch.stack([words & 0xFFFF, words >> 16], -1).flatten(-2)
+    limbs = torch.nn.functional.pad(limbs, (0, 16 - limbs.shape[-1]))
+    return bn254.mont_mul(limbs, gl.device_table(R2_LIMBS, lo.device))
+
+
+def leaf_blocks_plain(spec, dev):
+    """Plain torch: {block key: int64 blocks} of every leaf of ``spec``
+    (``leaf_sources``) from the leaves in ``dev``: ``init_leaf_packed``,
+    (B, Q, 4, max_steps, 3, 16), and each ``step<j>_leaf_packed``, (B, Q,
+    steps, 3, 16), canonical Montgomery limbs, bit for bit what ingest
+    makes of the same leaves (widened)."""
+    out = {}
+    for src in leaf_sources(spec):
+        out.setdefault(src.block_key, []).append(
+            pack_blocks_plain(leaf_planes(src, dev), src.steps))
+    return {k: torch.stack(v, dim=2) if k == "init_leaf_packed" else v[0]
+            for k, v in out.items()}
+
+
+def leaf_blocks(spec, dev):
+    """The blocks of ``leaf_blocks_plain``: on a CUDA tensor one launch of
+    the block builder (``kernels/fri_leaves.leaf_blocks``), which raises
+    if it cannot; the plain version only on a CPU tensor."""
+    if dev["init_leaves_0"][0].device.type == "cpu":
+        return leaf_blocks_plain(spec, dev)
+    from ..kernels import fri_leaves as kl
+    return kl.leaf_blocks(spec, dev)
 
 
 def _bit(x_index, bit):

@@ -5,10 +5,11 @@ conjunction, so an invalid proof yields False without aborting the batch.
 Per-query quantities are shaped (B, Q).  Every Merkle leaf hash and
 sibling path of a verification is one chain of Poseidon-BN254 permutations,
 and all of them run in one call (``fri/merkle.merkle_roots``: one launch of
-a chain kernel on the GPU).  ``_hash_leaves_scan`` and ``_merkle_chain``
-keep the JAX package's two scans, one permutation call a step, as the
-pieces the tests hold the chains against.  Digests are compared in the
-Montgomery domain.
+a chain kernel on the GPU), on absorb blocks built from the batch's leaves
+(``fri/merkle.leaf_blocks``: one launch of the block builder on the
+GPU).  ``_hash_leaves_scan`` and ``_merkle_chain`` keep the JAX package's
+two scans, one permutation call a step, as the pieces the tests hold the
+chains against.  Digests are compared in the Montgomery domain.
 """
 
 from __future__ import annotations
@@ -157,8 +158,11 @@ def verify_fri(spec, dev, challenges, verdict, query_shard=None):
         cap_index = torch.zeros_like(x_index[0])
 
     # --- every leaf hash and Merkle path: roots (B, Q, 4 + steps, 16),
-    # the initial oracles' then each reduction step's
-    roots = merkle.merkle_roots(merkle.merkle_plan(spec), dev, x_index)
+    # the initial oracles' then each reduction step's, from absorb blocks
+    # built of the leaves that the checks below read
+    blocks = merkle.leaf_blocks(spec, dev)
+    roots = merkle.merkle_roots(merkle.merkle_plan(spec), {**dev, **blocks},
+                                x_index)
 
     # --- initial tree Merkle proofs
     caps = torch.stack([dev["const_sigmas_cap"], dev["wires_cap"],

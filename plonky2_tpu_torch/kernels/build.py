@@ -54,6 +54,7 @@ _SIGNATURES = {
     "p2t_merkle_chains_a": [_DESC, _P, _P, _P, _P],
     "p2t_merkle_chains_cios": [_DESC, _P, _P, _P],
     "p2t_merkle_chains_info": [_I, _I, _INTS],
+    "p2t_fri_leaf_blocks": [_DESC, _P],
 }
 
 

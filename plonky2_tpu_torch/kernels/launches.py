@@ -9,6 +9,7 @@ nothing here (``torch.profiler`` sees those launches).
 
 from __future__ import annotations
 
+from . import fri_leaves as kl
 from . import fri_merkle as kf
 from . import goldilocks_ext as kq
 from . import goldilocks_mul as km
@@ -31,7 +32,8 @@ def counters():
             "qe_mul": km.qe_mul,
             "coset_interp_scan": km.coset_interp_scan,
             "merkle_chains_a": kf.chains_a,
-            "merkle_chains_cios": kf.chains_cios}
+            "merkle_chains_cios": kf.chains_cios,
+            "fri_leaf_blocks": kl.leaf_blocks}
 
 
 # The device kernel each counter's wrapper launches, as torch.profiler names
@@ -48,7 +50,8 @@ DEVICE_NAMES = {"poseidon_bn254": "poseidon_bn254_kernel",
                 "qe_mul": "qe_mul_kernel",
                 "coset_interp_scan": "coset_interp_scan_kernel",
                 "merkle_chains_a": "merkle_chains_a_kernel",
-                "merkle_chains_cios": "merkle_chains_cios_kernel"}
+                "merkle_chains_cios": "merkle_chains_cios_kernel",
+                "fri_leaf_blocks": "fri_leaf_blocks_kernel"}
 
 
 def reset():

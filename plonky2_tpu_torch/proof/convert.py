@@ -16,8 +16,11 @@ returns it):
 
 ``from_reference`` is ``widen`` of ``to_narrow``.  ``*_tovec`` chunks are
 dropped from both (they enter the transcript through the observed sequence
-built on the host), as is an ``ingest_batch`` batch's validity mask
-(``verify_batch`` applies it on the host).
+built on the host), as are the Merkle leaves' absorb blocks
+(``*_leaf_packed``: FRI builds them from the leaves, ``fri/merkle
+.leaf_blocks``) and an ``ingest_batch`` batch's validity mask
+(``verify_batch`` applies it on the host).  So every other key is the JAX
+``proof_to_device_np``'s.
 
 The compiled verifier keeps the narrow layout of its key in one flat int32
 buffer: ``flat_layout`` gives each array's slot, ``pack`` copies a batch's
@@ -117,15 +120,16 @@ def _narrow(key, arr):
 
 
 def device_arrays(batch_np):
-    """The batch's arrays that reach the device: all but the mask and the
-    ``*_tovec`` chunks."""
+    """The batch's arrays that reach the device: all but the mask, the
+    ``*_tovec`` chunks and the ``*_leaf_packed`` blocks."""
     return {k: v for k, v in batch_np.items()
-            if k != VALID_MASK and not k.endswith("_tovec")}
+            if k != VALID_MASK and not k.endswith(("_tovec", "_leaf_packed"))}
 
 
 def to_narrow(batch_np):
-    """Batched serde dict (numpy) -> its narrow layout, key by key the
-    leaves of the JAX ``proof_to_device_np``, as int32 views."""
+    """Batched serde dict (numpy) -> its narrow layout: of ``device_arrays``,
+    key by key the leaves of the JAX ``proof_to_device_np``, as int32
+    views."""
     return {k: _narrow(k, v) for k, v in device_arrays(batch_np).items()}
 
 

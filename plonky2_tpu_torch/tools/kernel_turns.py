@@ -26,10 +26,12 @@ with the gate's host schedule where the tree has it, else with the
 tensors the gate gathered for it before), each in a CUDA graph of 20 calls
 (the mean of 3 replays), since one launch takes a few microseconds; times
 FRI's two chain kernels (``kernels/fri_merkle.chains_a`` and
-``chains_cios``, ``csrc/fri_merkle.cu``) on random canonical limbs in the
-step circuit's layout at B=256 and the decode_block circuit's at B=4
-(every query round), in turns A, CIOS, CIOS, A, each in a CUDA graph of
-``CHAIN_ITERS`` calls (the mean of 3 replays), after checking each against
+``chains_cios``, ``csrc/fri_merkle.cu``) on random canonical leaves and
+sibling limbs in the step circuit's layout at B=256 and the decode_block
+circuit's at B=4 (every query round; ``chain_inputs``: the leaves' absorb
+blocks built by FRI's block builder, ``csrc/fri_leaves.cu``, which is timed
+too), in turns A, CIOS, CIOS, A, each in a CUDA graph of ``CHAIN_ITERS`` calls
+(the mean of 3 replays), after checking each against
 ``fri/merkle.merkle_roots_plain`` bit for bit; digests each kernel's
 SASS (``cuobjdump -sass``; equal digests mean the same machine code), the
 transcript's output and the chains' and products' outputs; and keeps
@@ -102,7 +104,8 @@ KERNELS = {"poseidon_bn254": "poseidon_bn254_kernel",
            "gl_mul_const": "gl_mul_const_kernel",
            "coset_interp_scan": "coset_interp_scan_kernel",
            "merkle_chains_a": "merkle_chains_a_kernel",
-           "merkle_chains_cios": "merkle_chains_cios_kernel"}
+           "merkle_chains_cios": "merkle_chains_cios_kernel",
+           "fri_leaf_blocks": "fri_leaf_blocks_kernel"}
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 
 
@@ -232,20 +235,30 @@ def scan_call(G, gl, qe, gate, inter_eval, inter_prod, values, pt):
 
 
 def chain_inputs(spec, B, seed, dev):
-    """Random canonical limbs (below 2^253) in ``spec``'s leaf and sibling
-    layout and random query indices below 2^lde_bits, B proofs of every
-    query round: (tensor dict, index pair)."""
+    """Random Goldilocks leaves (below p) and canonical sibling limbs (below
+    2^253) in ``spec``'s layout and random query indices below 2^lde_bits,
+    B proofs of every query round, the leaves' absorb blocks built from
+    them: (tensor dict, index pair).  The dict holds the widened leaves,
+    the siblings and the blocks from ``fri/merkle.leaf_blocks`` (on the
+    card, the block builder)."""
     import torch
 
-    from plonky2_tpu_torch.proof import serde
+    from plonky2_tpu_torch.fields import goldilocks as gl
+    from plonky2_tpu_torch.fri import merkle
+    from plonky2_tpu_torch.proof import convert, serde
 
     rng = np.random.default_rng(seed)
-    d = {}
+    d, leaves = {}, {}
     for k, (shape, _) in serde.proof_shapes(spec).items():
-        if k.endswith(("leaf_packed", "siblings")):
+        if k.endswith("siblings"):
             v = rng.integers(0, 1 << 16, size=(B,) + shape, dtype=np.int64)
             v[..., 15] &= 0x1FFF
             d[k] = torch.as_tensor(v).to(dev)
+        elif k.startswith("init_leaves_") or k.endswith("_evals"):
+            leaves[k] = rng.integers(0, gl.P, size=(B,) + shape,
+                                     dtype=np.uint64)
+    d.update(convert.from_reference(leaves, dev))
+    d.update(merkle.leaf_blocks(spec, d))
     v = rng.integers(0, 1 << spec.lde_bits, size=(B, spec.num_query_rounds),
                      dtype=np.uint64)
     return d, (torch.as_tensor((v & 0xFFFFFFFF).astype(np.int64)).to(dev),
@@ -271,6 +284,8 @@ def time_chains(dev, graph_ms):
                                  / "common_circuit_data.json")
         plan = merkle.merkle_plan(spec)
         d, x = chain_inputs(spec, B, SEED + B, dev)
+        ms[f"fri_leaf_blocks@{fixture}x{B}"] = [graph_ms(
+            lambda: merkle.leaf_blocks(spec, d), CHAIN_ITERS)]
         want = merkle.merkle_roots_plain(plan, d, x)
         for form in ("a", "cios", "cios", "a"):
             fn = getattr(kf, f"chains_{form}")

@@ -226,9 +226,11 @@ class CompiledVerifier:
     (``convert.widen``, one ``bitwise_and`` a leaf) and verifies.  A batch
     comes in through ``load``: its arrays checked against the key's layout,
     their bytes packed into a pinned host buffer (``staging``, allocated at
-    the first ``load`` and kept: at step B=256 some 149 MB of pinned host
-    memory a key, 1.2 GB at the cache's 8 keys), and one host-to-device
-    copy on the replay's stream.  A CUDA event recorded after that copy is
+    the first ``load`` and kept: at step B=256 some 51 MB of pinned host
+    memory a key, 0.41 GB at the cache's 8 keys), and one host-to-device
+    copy on the replay's stream.  FRI's Merkle-leaf absorb blocks are not
+    in the layout: the graph builds them from the leaves
+    (``fri/merkle.leaf_blocks``).  A CUDA event recorded after that copy is
     waited on before the next pack, so a batch loaded while the last one's
     copy is in flight cannot overwrite it.  ``__call__`` copies narrow
     tensors in instead (``prepare(..., narrow=True)``).  ``replay`` captures

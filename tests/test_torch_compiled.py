@@ -12,7 +12,8 @@ shape.  Here:
   ``TorchDispatchMode``, outside the kernels' entry points whose plain CPU
   versions stand in for the kernels (``poseidon_bn254.permute``,
   ``challenger.run_transcript`` and, since FRI's chain kernels,
-  ``fri.merkle.merkle_roots``);
+  ``fri.merkle.merkle_roots``, and since FRI's leaf-block builder,
+  ``fri.merkle.leaf_blocks``);
 - the constant tables (``goldilocks.device_table``) are made once per
   content and device;
 - the shape check (``verifier.check_inputs``) raises on another B, another
@@ -91,6 +92,7 @@ def _probe(monkeypatch, run):
 
     monkeypatch.setattr(pb, "permute", opaque(pb.permute))
     monkeypatch.setattr(merkle, "merkle_roots", opaque(merkle.merkle_roots))
+    monkeypatch.setattr(merkle, "leaf_blocks", opaque(merkle.leaf_blocks))
     monkeypatch.setattr(chal, "run_transcript", opaque(chal.run_transcript))
     for name in ("as_tensor", "tensor", "from_numpy"):
         monkeypatch.setattr(torch, name, counted(name, getattr(torch, name)))

@@ -22,7 +22,10 @@ is false.  On a machine with a GPU:
   (``verifier.capture``) and re-fed the lanes in another order, give the
   compiled verifier's plonk_ok and fri_ok;
 - a capture that cannot be captured (a host sync inside) raises, and the
-  next capture works.
+  next capture works;
+- at step B=256, with FRI's absorb blocks built on the card, the compiled
+  verifier gives the outputs of the eager path fed ingest's blocks, under
+  both Poseidon-BN254 forms, and its layout carries no block.
 """
 import gc
 import weakref
@@ -178,3 +181,56 @@ def test_failed_capture_raises_and_the_next_capture_works(dev):
         x.add_(1)
         graph.replay()
     assert out.cpu().tolist() == [2 * (i + 1) for i in range(8)]
+
+
+# FRI's absorb blocks built on the card: at step B=256, lanes of the
+# decode_block-style corruptions of the step proof tiled over the batch, the
+# compiled verifier's three outputs equal those of the eager verify_device
+# fed ingest's own blocks (the path where they came from the host), under
+# both Poseidon-BN254 forms; its layout carries no block, its load copies
+# 50,886,656 bytes, and a key's first call launches the builder twice (the
+# warm-up and the capture) and a replay launches it inside the graph.
+@pytest.fixture(scope="module")
+def step_256():
+    from plonky2_tpu_torch.proof.fixtures import (corrupt_leaf,
+                                                  corrupt_pow_witness,
+                                                  corrupt_wires_opening,
+                                                  load_fixture)
+    spec, raw, vraw = load_fixture("testdata/step")
+    proofs = [serde.ingest_proof(spec, r, vraw) for r in
+              (raw, corrupt_wires_opening(raw), corrupt_leaf(raw, -1),
+               corrupt_pow_witness(raw))]
+    lanes = [0] * 256
+    lanes[1], lanes[130], lanes[255] = 1, 2, 3
+    return spec, serde.stack_proofs([proofs[i] for i in lanes])
+
+
+@pytest.mark.parametrize("impl", pb.IMPLS)
+def test_blocks_built_on_the_card_change_no_output(dev, step_256, impl,
+                                                   monkeypatch):
+    from plonky2_tpu_torch.fri import merkle
+    from plonky2_tpu_torch.kernels import fri_leaves as kl
+
+    spec, batch = step_256
+    with pb.use_impl(impl):
+        verifier.compiled_verifier.cache_clear()
+        before = kl.leaf_blocks.launches
+        got = verifier.verify_batch(spec, batch, device=dev, diagnostics=True)
+        assert kl.leaf_blocks.launches == before + 2
+        again = verifier.verify_batch(spec, batch, device=dev,
+                                      diagnostics=True)
+        assert kl.leaf_blocks.launches == before + 2
+        entry = verifier.compiled_verifier(spec, 256, dev, impl)
+        shipped = {k: torch.as_tensor(v.astype("int64")).to(dev)
+                   for k, v in batch.items() if k.endswith("_leaf_packed")}
+        monkeypatch.setattr(merkle, "leaf_blocks", lambda spec, d: shipped)
+        schedule, d, obs = verifier.prepare(spec, batch, dev)
+        eager = _host(verifier.verify_device(spec, schedule, d, obs,
+                                             diagnostics=True))
+    assert not any(s.name.endswith("_leaf_packed") for s in entry.slots)
+    assert entry.bytes_in == 50_886_656
+    want = [True] * 256
+    want[1] = want[130] = want[255] = False
+    assert eager["verdict"] == want
+    assert {k: v.tolist() for k, v in got.items()} == eager
+    assert {k: v.tolist() for k, v in again.items()} == eager

@@ -98,13 +98,23 @@ def _port_roots(plan, dev, x_index):
     return torch.stack(roots, dim=2)
 
 
+def _chain_inputs(batch):
+    """The batch's tensor dict with ingest's absorb blocks widened beside
+    it (the device layout leaves them out: FRI builds them, and
+    ``tests/test_torch_leaf_blocks.py`` holds that build to these)."""
+    dev = verifier.proof_to_device(batch, "cpu")
+    dev.update({k: torch.as_tensor(v.astype(np.int64))
+                for k, v in batch.items() if k.endswith("_leaf_packed")})
+    return dev
+
+
 @pytest.fixture(scope="module")
 def decode_window():
     """decode_block at B=1, its last two query rounds as views of the
     whole batch (the 2-D mesh's last query shard), random indices."""
     spec, raw, vraw = load_fixture("testdata/decode_block")
-    dev = verifier.proof_to_device(
-        serde.stack_proofs([serde.ingest_proof(spec, raw, vraw)]), "cpu")
+    dev = _chain_inputs(
+        serde.stack_proofs([serde.ingest_proof(spec, raw, vraw)]))
     keys = [k for k in serde.query_axis_keys(spec)
             if k.endswith(("leaf_packed", "siblings"))]
     window = {k: dev[k][:, WINDOW] for k in keys}
@@ -118,8 +128,7 @@ def tiny():
     spec = make_tiny_spec(num_query_rounds=2)
     batch = serde.stack_proofs([make_dummy_proof(spec, seed=s)
                                 for s in range(3)])
-    return spec, verifier.proof_to_device(batch, "cpu"), _index(
-        (3, 2), spec.lde_bits, seed=6)
+    return spec, _chain_inputs(batch), _index((3, 2), spec.lde_bits, seed=6)
 
 
 # Chain kinds off the circuits' layouts: a partial last block, an oracle's

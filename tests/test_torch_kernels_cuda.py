@@ -877,3 +877,92 @@ def test_merkle_roots_dispatches_by_the_kernel_setting(dev):
         kf.chains_a(plan, dict(d, init_siblings=d["init_siblings"].cpu()), x)
     with pytest.raises(build.KernelError):  # the index on the CPU
         kf.chains_a(plan, d, tuple(t.cpu() for t in x))
+
+
+# FRI's leaf-block builder (csrc/fri_leaves.cu) against the plain version
+# (fri/merkle.leaf_blocks_plain, run on the card too): full-range 64-bit
+# words in the step circuit's layout at B=256 (every block of the main
+# path's largest batch) and a query window of it (views read in place),
+# decode_block at B=4 and the tiny spec (HashOrNoop oracles, one-block
+# leaves); and the fixtures' ingested blocks; and a capture in a graph.
+from plonky2_tpu_torch import verifier  # noqa: E402
+from plonky2_tpu_torch.kernels import fri_leaves as kl  # noqa: E402
+from plonky2_tpu_torch.proof.fixtures import decode_block_lanes  # noqa: E402
+from plonky2_tpu_torch.proof.convert import from_reference  # noqa: E402
+
+
+def _leaf_dev(spec, B, seed, dev):
+    rng = np.random.default_rng(seed)
+    batch = serde.zero_batch(spec, B)
+    for k in batch:
+        if k.startswith("init_leaves_") or k.endswith("_evals"):
+            batch[k] = rng.integers(0, 1 << 64, size=batch[k].shape,
+                                    dtype=np.uint64)
+    return from_reference(batch, dev)
+
+
+def _leaf_case(name, dev, seed=70):
+    if name == "tiny":
+        spec = make_tiny_spec(num_query_rounds=3)
+        return spec, _leaf_dev(spec, 5, seed, dev)
+    if name == "decode_block B=4":
+        spec = load_circuit_spec(
+            "testdata/decode_block/common_circuit_data.json")
+        return spec, _leaf_dev(spec, 4, seed, dev)
+    step = load_circuit_spec("testdata/step/common_circuit_data.json")
+    d = _leaf_dev(step, 256, seed, dev)
+    if name == "step B=256 window":
+        qkeys = set(serde.query_axis_keys(step))
+
+        def cut(t):
+            return tuple(cut(x) for x in t) if isinstance(t, tuple) \
+                else t[:, 7:14]
+        d = {k: (cut(v) if k in qkeys else v) for k, v in d.items()}
+    return step, d
+
+
+@pytest.mark.parametrize("case", ["step B=256", "step B=256 window",
+                                  "decode_block B=4", "tiny"])
+def test_leaf_block_kernel_matches_plain(dev, case):
+    spec, d = _leaf_case(case, dev)
+    got, n = _counted(kl.leaf_blocks, lambda: merkle.leaf_blocks(spec, d))
+    want = merkle.leaf_blocks_plain(spec, d)
+    torch.cuda.synchronize()
+    assert n == 1 and sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].shape == want[k].shape and got[k].is_contiguous(), k
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_leaf_block_kernel_equals_ingest(dev):
+    spec, raws, vraw = decode_block_lanes("testdata/decode_block")
+    batch = serde.stack_proofs([serde.ingest_proof(spec, r, vraw)
+                                for r in raws])
+    got = kl.leaf_blocks(spec, from_reference(batch, dev))
+    torch.cuda.synchronize()
+    for k, v in got.items():
+        assert torch.equal(v.cpu(), torch.as_tensor(batch[k].astype(
+            np.int64))), k
+
+
+def test_leaf_block_kernel_is_captured_in_a_graph(dev):
+    """Captured once, the launch replays on new words written into its
+    inputs."""
+    spec, d = _leaf_case("decode_block B=4", dev)
+    _, fresh = _leaf_case("decode_block B=4", dev, seed=73)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kl.leaf_blocks(spec, d)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kl.leaf_blocks(spec, d)
+    for (_, t), (_, f) in zip(verifier._leaves(d), verifier._leaves(fresh)):
+        t.copy_(f)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = merkle.leaf_blocks_plain(spec, fresh)
+    for k in want:
+        assert torch.equal(out[k], want[k]), k
+

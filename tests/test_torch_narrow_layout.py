@@ -3,13 +3,17 @@ and the compiled verifier's loading of it, on the CPU.
 
 - ``to_narrow`` gives, key by key, the leaves of the JAX
   ``verifier.proof_to_device_np``, word for word (compared as uint32), on
-  step and decode_block at B=2 and on a ``serde.zero_batch``; ``split_words``
-  gives ``_split_u64_np``'s words;
+  step and decode_block at B=2 and on a ``serde.zero_batch``, but for the
+  Merkle leaves' absorb blocks (``*_leaf_packed``), which it leaves out:
+  FRI builds them from the leaves (``fri/merkle.leaf_blocks``,
+  ``tests/test_torch_leaf_blocks.py``); ``split_words`` gives
+  ``_split_u64_np``'s words;
 - ``widen(to_narrow(b))`` equals the parent form of ``from_reference`` (the
   plain reference below: each uint64 split into int64 halves through
-  ``goldilocks.split_u64``, each uint32 limb cast to int64) bit for bit, with
-  its keys, their order, shapes and dtypes, on the fixtures and on random
-  words with 0, p - 1, 2^63 and 2^64 - 1 among them;
+  ``goldilocks.split_u64``, each uint32 limb cast to int64), the absorb
+  blocks left out, bit for bit, with its keys, their order, shapes and
+  dtypes, on the fixtures and on random words with 0, p - 1, 2^63 and
+  2^64 - 1 among them;
 - one flat int32 buffer (``flat_layout``, ``pack``, ``narrow_views``) holds
   that layout: its views equal ``to_narrow`` of the packed batch;
 - ``CompiledVerifier.load`` (an entry on the CPU: no graph is made here)
@@ -32,11 +36,15 @@ from plonky2_tpu_torch.proof.fixtures import (corrupt_wires_opening,
 from plonky2_tpu_torch.transcript import challenger as chal
 
 
+PACKED = "_leaf_packed"  # the absorb blocks' keys end so
+
+
 def _parent_from_reference(batch_np):
-    """``from_reference`` as it was before the narrow layout."""
+    """``from_reference`` as it was before the narrow layout, without the
+    absorb blocks."""
     dev = {}
     for k, v in batch_np.items():
-        if k == serde.VALID_MASK:
+        if k == serde.VALID_MASK or k.endswith(PACKED):
             continue
         v = np.asarray(v)
         if v.dtype == np.uint64:
@@ -93,9 +101,12 @@ def _flat(tree):
 def test_to_narrow_equals_jax_proof_to_device_np(batches, name):
     spec, batch = batches[name]
     ours, jax = convert.to_narrow(batch), proof_to_device_np(batch)
-    assert list(ours) == list(jax)
+    packed = [k for k in jax if k.endswith(PACKED)]
+    assert packed == ["init_leaf_packed", "step0_leaf_packed",
+                      "step1_leaf_packed"]
+    assert list(ours) == [k for k in jax if k not in packed]
     assert not any(k.endswith("_tovec") for k in ours)
-    for k in jax:
+    for k in ours:
         mine, theirs = _flat(ours[k]), _flat(jax[k])
         assert len(mine) == len(theirs), k
         for a, b in zip(mine, theirs):
