@@ -5,6 +5,8 @@ Counterpart of ``plonky2_tpu/utils/profiling.py``:
 - ``StageTimer``: host wall-clock seconds per named stage, each stage ended
   by ``torch.cuda.synchronize()`` on a CUDA device so the device work lands
   in the stage that issued it; one JSON object per report.
+- ``SpanTimer``: host spans and CUDA event pairs that never synchronise,
+  and counts, read once the work is done (the proof mesh's spans).
 - ``trace``: a ``torch.profiler`` trace of the CPU and (where there is one)
   the GPU, written as a Chrome trace (open in Perfetto or chrome://tracing).
 - ``device_kernels``: one run of a function under ``torch.profiler`` on a
@@ -61,6 +63,53 @@ class StageTimer:
         out = dict(self.timings)
         out.update(extra)
         return json.dumps(out)
+
+
+class SpanTimer:
+    """Spans that never synchronise, for work spread over several cards and
+    host threads, where ``StageTimer``'s synchronise would run the cards one
+    after another.  ``stage`` times a host span on ``time.perf_counter``;
+    ``device_stage`` records a pair of CUDA events on the device's current
+    stream around the work it issues; ``set`` stores a span measured
+    elsewhere or a count.  All land in ``timings``, the device spans' seconds
+    once ``read`` has waited for their end events, which the caller does
+    after the work's results are on the host.  Each name is written by one
+    thread."""
+
+    def __init__(self):
+        self.timings = {}
+        self._events = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.timings[name] = time.perf_counter() - t0
+
+    @contextlib.contextmanager
+    def device_stage(self, name: str, device):
+        stream = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        try:
+            yield
+        finally:
+            end.record(stream)
+            self._events[name] = (start, end)
+
+    def set(self, name: str, value):
+        self.timings[name] = value
+
+    def read(self):
+        """``timings``, each device span's seconds included."""
+        for name, (start, end) in self._events.items():
+            end.synchronize()
+            self.timings[name] = start.elapsed_time(end) / 1e3
+        self._events.clear()
+        return dict(self.timings)
 
 
 # A profile whose device trace came back empty is taken again, at most

@@ -57,6 +57,14 @@ def _stage(timer, name):
     return timer.stage(name) if timer else contextlib.nullcontext()
 
 
+def _device_stage(timer, name, device):
+    """``timer.device_stage(name, device)`` where the timer takes CUDA event
+    pairs (a ``utils.profiling.SpanTimer``), else nothing."""
+    device_stage = getattr(timer, "device_stage", None)
+    return device_stage(name, device) if device_stage else \
+        contextlib.nullcontext()
+
+
 def resolve_device(device):
     """The torch device to run on, a CUDA device with its index (the
     current one for ``"cuda"``); a CUDA device must exist, never a silent
@@ -157,6 +165,22 @@ def apply_valid_masks(verdict, proof_batch, valid_mask=None):
         if mask is not None:
             verdict = verdict & np.asarray(mask, dtype=bool)
     return verdict
+
+
+def check_batch(spec, proof_batch, batch_size, query_shard=None):
+    """Raise ValueError unless the numpy serde dict ``proof_batch`` has
+    exactly the keys, shapes and dtypes of ``batch_size`` proofs of ``spec``
+    holding the query rounds of ``query_shard``: its query rounds first,
+    then every array, the ``*_tovec`` chunks and the mask too
+    (``serde.batch_error``), then the batch size."""
+    check_query_rounds(spec, proof_batch, query_shard)
+    start, stop = query_rounds(spec, query_shard)
+    error = serde.batch_error(spec, proof_batch, stop - start)
+    if error is None and len(proof_batch["pow_witness"]) != batch_size:
+        error = (f"batch size {len(proof_batch['pow_witness'])}, not "
+                 f"{batch_size}")
+    if error is not None:
+        raise ValueError(f"batch not in the layout of its key: {error}")
 
 
 # ---------------------------------------------------------------------------
@@ -272,21 +296,6 @@ class CompiledVerifier:
                                  diagnostics=True,
                                  query_shard=self.query_shard)
 
-    def check_batch(self, proof_batch):
-        """Raise ValueError unless the numpy serde dict ``proof_batch`` has
-        exactly this key's keys, shapes and dtypes: its query rounds first,
-        then every array, the ``*_tovec`` chunks and the mask too
-        (``serde.batch_error``), then the batch size."""
-        check_query_rounds(self.spec, proof_batch, self.query_shard)
-        start, stop = query_rounds(self.spec, self.query_shard)
-        error = serde.batch_error(self.spec, proof_batch, stop - start)
-        if error is None and len(proof_batch["pow_witness"]) != self.batch_size:
-            error = (f"batch size {len(proof_batch['pow_witness'])}, not "
-                     f"{self.batch_size}")
-        if error is not None:
-            raise ValueError(f"batch not in the layout of this compiled "
-                             f"verifier: {error}")
-
     def load(self, proof_batch, timer=None):
         """Load the numpy serde dict ``proof_batch`` for the next replay:
         ``check_batch`` before anything is copied and the observed sequence
@@ -296,7 +305,8 @@ class CompiledVerifier:
         (``copy_in``)."""
         cuda = self.device.type == "cuda"
         with _stage(timer, "observed"):
-            self.check_batch(proof_batch)
+            check_batch(self.spec, proof_batch, self.batch_size,
+                        self.query_shard)
             arrays = convert.device_arrays(proof_batch)
             arrays[OBSERVED] = chal.build_observed_host(self.spec,
                                                         proof_batch)
@@ -335,12 +345,15 @@ class CompiledVerifier:
         first call captures first, untimed): {"verdict", "plonk_ok",
         "fri_ok"}, clones of the outputs, not yet synchronised.  With a
         ``utils.profiling.StageTimer``, the replay (``replay``) and the
-        clones (``outputs``) are timed apart."""
+        clones (``outputs``) are timed apart; a timer that takes device
+        stages (``utils.profiling.SpanTimer``) also gets a pair of CUDA
+        events around the graph's replay (``replay``)."""
         with torch.cuda.device(self.device):
             if self.graph is None:
                 self.graph, self.outputs, self.warmup_s, self.capture_s = \
                     capture(self._verify, self.device)
-            with _stage(timer, "replay"):
+            with _stage(timer, "replay"), \
+                    _device_stage(timer, "replay", self.device):
                 self.graph.replay()
             with _stage(timer, "outputs"):
                 return {k: v.clone() for k, v in self.outputs.items()}
